@@ -1,0 +1,9 @@
+"""The device half of the paper's allocator, ported: the refcounted,
+versioned, superblock-structured KV page pool (``pagepool.py``) behind the
+unified ``Allocator`` protocol (``allocator.py``), with the pluggable
+reclamation policies (``reclaim_policy.py``) in front of it."""
+
+from .allocator import Allocator, AllocatorView
+from .vm import ReleaseStrategy, superblock_floor
+
+__all__ = ["Allocator", "AllocatorView", "ReleaseStrategy", "superblock_floor"]
