@@ -11,18 +11,30 @@ run with a nonzero exit and no result line.
 2. Kernels: each kernel against its plain PyTorch version on the card over
    a sweep of cases, with the tolerance stated beside it, then timed at the
    serving path's shapes beside its bound, its plain version and a library
-   yardstick.
+   yardstick.  Kernel 3 (``paged_attention_sharded``) is kernel 1 launched
+   once per shard on ``TP`` head slabs of one card; it is held against the
+   plain version over the joined arena.
 3. Parity: a reduced olmo-1b engine on the card against the same engine on
    the CPU (plain versions), float32 weights: generated tokens must agree.
-4. Engine: full-width olmo-1b (seeded bf16 weights) served through
-   ``PagedServingEngine``; every request must finish, the clock mirror must
-   equal the pool's clock, both kernels must launch once per layer per
-   step, and a steady step must make exactly one device->host transfer.
+4. Engines: full-width olmo-1b served through ``PagedServingEngine``, at
+   TP=1 and at ``tensor_parallel=TP`` with every shard on this card
+   (``devices=["cuda:0"] * TP``), with seeded float32 weights and then the
+   same weights in bf16 (the main path).  In each run every request must
+   finish, the clock mirror must equal the pool's clock, each kernel must
+   launch once per layer per shard per step, and a steady step must make
+   exactly one device->host transfer.  Across runs: in float32, TP=2 must
+   equal TP=1 (tokens, and the K/V of every position written, within
+   2e-2 + 2e-2|x|); in bf16, TP=2's K/V must stay as close to float32's as
+   TP=1's do (mean abs difference within 1.25x), over the prompt positions
+   and, apart, over the generated positions where both still feed the
+   model float32's tokens; the tokens TP=2 shares with TP=1 are printed.
 
-The second-to-last line is the ``kernels`` JSON; the last line is
+The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2 and
+the sharded kernel 3; launches from the bf16 TP=1 run for kernels 1 and 2,
+from the bf16 TP=2 run for kernel 3); the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA.
 ``--profile`` adds a torch.profiler breakdown of steady full-width decode
-steps after the engine phase.
+steps at TP=1 and at TP=2 after the engine runs.
 """
 
 from __future__ import annotations
@@ -44,6 +56,8 @@ PA_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 KA_SRC = "src/repro_torch/kernels/csrc/kv_append.cu"
 PA_TPU = "src/repro/kernels/paged_attention.py:156"
 KA_TPU = "src/repro/kernels/kv_append.py:46"
+PS_TPU = "src/repro/kernels/paged_attention.py:218"
+TP = 2  # shards of the tensor-parallel checks, all on this card
 
 
 def log(*a):
@@ -208,9 +222,13 @@ def kernel_phase(results):
         f"(bf16 tol 2e-2, f32 tol 1e-4); worst bf16 err {worst:.3g}")
 
     # -- kernel 2: bit-exact sweep ---------------------------------------------
-    for i, (C, dtype) in enumerate([(1, torch.bfloat16), (16, torch.bfloat16),
-                                    (16, torch.float32), (1, torch.float32)]):
-        B, Hkv, D, page, P, M = 8, 16, 128, 16, 512, 12
+    # Hkv=16 is the TP=1 arena; Hkv=8 with a table of 512 pages is the
+    # per-shard slab the TP=2 engine hands the kernel (2048-byte rows)
+    cases = [(1, torch.bfloat16, 16, 12), (16, torch.bfloat16, 16, 12),
+             (16, torch.float32, 16, 12), (1, torch.float32, 16, 12),
+             (1, torch.bfloat16, 8, 512), (16, torch.bfloat16, 8, 512)]
+    for i, (C, dtype, Hkv, M) in enumerate(cases):
+        B, D, page, P = 8, 128, 16, 512
         rng = np.random.default_rng(200 + i)
         bt = np.full((B, M), -1, np.int32)
         bt[:, :10] = rng.permutation(P)[: B * 10].reshape(B, 10)
@@ -231,8 +249,9 @@ def kernel_phase(results):
         kv_append_plain(*arena, kn, vn, T(bt), T(ln), T(n_new), T(ok))
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(mine, arena)),
-              f"kv_append case {i}: not bit-exact")
-    log("kv_append: 4 cases bit-exact against the plain version")
+              f"kv_append case {i} {cases[i]}: not bit-exact")
+    log(f"kv_append: {len(cases)} cases bit-exact against the plain version "
+        f"(Hkv 16 and the TP={TP} slab's 8)")
 
     # -- timing at the serving path's shapes ------------------------------------
     # full olmo-1b engine: B=8 rows, block table width 512 (= num_pages),
@@ -262,6 +281,8 @@ def kernel_phase(results):
         name="paged_attention", route="cuda", source=PA_SRC, replaces=PA_TPU,
         **rows[1])
     results["paged_attention_c16"] = rows[16]
+
+    sharded_kernel(results, lens)
 
     B, C, Hkv, D, page, P, M = 8, 1, 16, 128, 16, 512, 512
     bt = torch.as_tensor(np.random.default_rng(8).permutation(P)[: B * 32]
@@ -302,6 +323,80 @@ def kernel_phase(results):
          if k not in ("name", "route", "source", "replaces")}))
 
 
+def sharded_kernel(results, lens):
+    """Kernel 3: kernel 1 launched once per shard on the shard's KV-head
+    slab, against the plain version over the joined arena, then timed at
+    the serving path's shapes split over ``TP`` shards."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_plain, paged_attention_sharded,
+        paged_attention_sharded_plain)
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh(TP, ["cuda:0"] * TP)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # as kernel 1's
+
+    def split(a):  # [.., H, D] -> TP contiguous head slabs
+        return [t.contiguous() for t in a.chunk(TP, dim=2)]
+
+    def run(q, kp, vp, bt, ln, cl):
+        before = paged_attention_sharded.launches
+        outs = paged_attention_sharded(split(q), split(kp), split(vp), bt, ln,
+                                       cl, mesh=mesh, n_kv_heads=kp.shape[2])
+        check(paged_attention_sharded.launches - before == TP,
+              f"paged_attention_sharded made "
+              f"{paged_attention_sharded.launches - before} launches, want "
+              f"{TP}")
+        got = torch.cat(outs, dim=2)
+        want = paged_attention_plain(q, kp, vp, bt, ln, cl)
+        torch.cuda.synchronize()
+        return (got.float() - want.float()).abs().max().item()
+
+    sweep = [(8, C, 16, 16, 128, 16, 512, 512, torch.bfloat16, lens)
+             for C in (1, 16)]
+    sweep += [(8, 16, 16, 16, 128, 16, 512, 512, torch.float32, lens),
+              (8, 16, 32, 8, 128, 16, 256, 20, torch.bfloat16, None)]
+    for i, (B, C, Hq, Hkv, D, page, P, M, dtype, ln_) in enumerate(sweep):
+        err = run(*attention_case(B, C, Hq, Hkv, D, page, P, M, dtype,
+                                  seed=300 + i, lens=ln_))
+        check(math.isfinite(err) and err <= tol[dtype],
+              f"paged_attention_sharded case {i}: max err {err}")
+    log(f"paged_attention_sharded: {len(sweep)} cases over {TP} shards match "
+        f"the plain version over the joined arena (bf16 tol 2e-2, f32 tol "
+        f"1e-4), {TP} launches per call")
+
+    rows = {}
+    for C in (1, 16):
+        q, kp, vp, bt, ln, cl = attention_case(8, C, 16, 16, 128, 16, 512,
+                                               512, torch.bfloat16, seed=7,
+                                               lens=lens)
+        cl.fill_(C)
+        err = run(q, kp, vp, bt, ln, cl)
+        qs, ks, vs = split(q), split(kp), split(vp)
+        byts = ops = 0
+        for qq, kk in zip(qs, ks):  # each shard's launch reads its inputs
+            b_, o_ = attention_work(qq, kk, bt, ln, cl)
+            byts, ops = byts + b_, ops + o_
+        b_ms, by = bound_ms(byts, ops, "bfloat16")
+        yard = [sdpa_yardstick(qq, kk, vv, bt, ln, cl)
+                for qq, kk, vv in zip(qs, ks, vs)]
+        rows[C] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: paged_attention_sharded(
+                qs, ks, vs, bt, ln, cl, mesh=mesh, n_kv_heads=16)),
+            plain_ms=time_ms(lambda: paged_attention_sharded_plain(
+                qs, ks, vs, bt, ln, cl, mesh=mesh, n_kv_heads=16), iters=5),
+            bound_ms=b_ms, bound_by=by,
+            library_ms=time_ms(lambda: [f() for f in yard]))
+        log(f"paged_attention_sharded C={C}, {TP} shards: "
+            + json.dumps(rows[C]))
+    results["paged_attention_sharded"] = dict(
+        name="paged_attention_sharded", route="cuda", source=PA_SRC,
+        replaces=PS_TPU, **rows[1])
+    results["paged_attention_sharded_c16"] = rows[16]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: parity of the card against the CPU on a small model
 
@@ -339,40 +434,121 @@ def parity_phase():
 # phase 4: the full-width engine
 
 
-def engine_phase(results, name):
+def row_kv(eng, r):
+    """K and V [L, n, Hkv, D] at the ``n = r.committed`` positions request
+    ``r`` has written, read from the (joined) arena through its block
+    table."""
+    import numpy as np
+    import torch
+
+    kvm = eng.kv_manager
+    pos = np.arange(r.committed)
+    page = np.asarray(kvm.row_pages(r.slot))[pos // kvm.page_size]
+    idx = [torch.as_tensor(a, device=kvm.device)
+           for a in (page, pos % kvm.page_size)]
+    kv = kvm.gather_kv()
+    return {n: kv[n][:, idx[0], idx[1]].float() for n in ("k", "v")}
+
+
+def first_divergence(run, base):
+    """Per request, the index of the first generated token where ``run``
+    and ``base`` (results of :func:`engine_phase`) differ."""
+    return [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), len(q))
+            for p, q in zip(run[0], base[0])]
+
+
+def kv_distance(run, base, depth):
+    """How far ``run``'s K/V are from ``base``'s, at positions where both
+    fed the model the same tokens: every prompt position, and generated
+    positions ``j < depth[i]`` of request i.  Returns {part: (mean abs
+    difference, elements beyond 2e-2 + 2e-2|x| — the reference's TP
+    tolerance —, elements)} for the parts "prompt" (chunked prefill) and
+    "decode" (C=1 steps), K and V together."""
+    import torch
+
+    out = {}
+    for part in ("prompt", "decode"):
+        diffs, bad = [], 0
+        for i, plen in enumerate(run[3]):
+            lo, hi = (0, plen) if part == "prompt" else (plen, plen + depth[i])
+            for n in ("k", "v"):
+                a, b = (x[1][i][n][:, lo:hi] for x in (run, base))
+                d = (a - b).abs()
+                diffs.append(d.flatten())
+                bad += int((d > 2e-2 + 2e-2 * b.abs()).sum())
+        d = torch.cat(diffs)
+        out[part] = (d.mean().item() if d.numel() else float("nan"), bad,
+                     d.numel())
+        n_pos = sum(run[3]) if part == "prompt" else sum(depth)
+        log(f"{run[2]}: {part} K/V against {base[2]} at {n_pos} positions: "
+            f"mean abs diff {out[part][0]:.4g}, {bad} of {d.numel()} "
+            f"elements beyond 2e-2 + 2e-2|x|")
+    return out
+
+
+def engine_phase(results, name, tp=1, dtype="bfloat16"):
+    """Serve the 8 requests on full-width olmo-1b with ``dtype`` weights;
+    ``tp`` > 1 serves them on ``tp`` shards of this card.  Returns
+    (generated tokens, per request the K/V of every position it wrote —
+    read just before its last step —, the phase's tag, prompt lengths)."""
+    import gc
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.kv_append import kv_append_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_sharded)
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
+    gc.collect()  # an earlier phase's engine (a reference cycle) and weights
+    torch.cuda.empty_cache()
+    tag = ("engine" if tp == 1 else f"engine tp={tp}") + (
+        "" if dtype == "bfloat16" else f" {dtype}")
     cfg = get_config("olmo-1b")
     t0 = time.perf_counter()
-    params = init_decoder_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    eng = PagedServingEngine(cfg, params, device="cuda", num_pages=512,
-                             page_size=16, max_batch=8, prefill_chunk=16)
+    params = init_decoder_lm(cfg, seed=0, dtype=getattr(torch, dtype),
+                             device="cuda")
+    where = (dict(device="cuda") if tp == 1 else
+             dict(tensor_parallel=tp, devices=["cuda:0"] * tp))
+    eng = PagedServingEngine(cfg, params, num_pages=512, page_size=16,
+                             max_batch=8, prefill_chunk=16, **where)
+    del params  # under tp the engine holds its own shard copies
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(64, 257, 8)]
     reqs = [eng.submit(p, 32) for p in prompts]
     torch.cuda.synchronize()
-    log(f"engine: olmo-1b full width ({cfg.n_layers} layers, d_model "
+    log(f"{tag}: olmo-1b full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
-        f"{cfg.vocab_padded}), set-up {time.perf_counter() - t0:.1f} s")
+        f"{cfg.vocab_padded}), set-up {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     sched = eng.scheduler
-    paged_attention_cuda.launches = 0
-    kv_append_cuda.launches = 0
+    # every kernel wrapper's count, and what one step must add to it
+    counters = {paged_attention_cuda: tp * cfg.n_layers,
+                kv_append_cuda: tp * cfg.n_layers,
+                paged_attention_sharded: (tp if tp > 1 else 0) * cfg.n_layers}
+    for fn in counters:
+        fn.launches = 0
     steps = steady = transfers = 0
+    kv_rows = {}
+    untimed = 0.0
     t0 = time.perf_counter()
     while True:
         sched.admit()
         if not sched.running and not sched.queue:
             break
-        before = (paged_attention_cuda.launches, kv_append_cuda.launches)
+        last = [r for r in sched.running if id(r) not in kv_rows
+                and len(r.generated) == r.max_new_tokens - 1]
+        if last:  # reads between steps, before the rows are freed; untimed
+            t1 = time.perf_counter()
+            kv_rows.update((id(r), row_kv(eng, r)) for r in last)
+            torch.cuda.synchronize()
+            untimed += time.perf_counter() - t1
+        before = {fn: fn.launches for fn in counters}
         is_steady = (not sched.queue and all(
             r.committed >= len(r.prompt)
             and len(r.generated) + 2 < r.max_new_tokens for r in sched.running))
@@ -386,8 +562,8 @@ def engine_phase(results, name):
                     torch.cuda.set_sync_debug_mode("default")
             syncs = [w for w in caught
                      if "called a synchronizing" in str(w.message)]
-            check(len(syncs) == 1, f"steady step {steps} made {len(syncs)} "
-                  f"device->host transfers: "
+            check(len(syncs) == 1, f"{tag}: steady step {steps} made "
+                  f"{len(syncs)} device->host transfers: "
                   f"{[str(w.message)[:80] for w in syncs]}")
             steady += 1
             transfers += len(syncs)
@@ -395,39 +571,49 @@ def engine_phase(results, name):
             eng.step()
         sched.maintain()
         steps += 1
-        check(paged_attention_cuda.launches - before[0] == cfg.n_layers
-              and kv_append_cuda.launches - before[1] == cfg.n_layers,
-              f"step {steps}: kernels launched "
-              f"{paged_attention_cuda.launches - before[0]} / "
-              f"{kv_append_cuda.launches - before[1]} times, want "
-              f"{cfg.n_layers} each")
+        got = {fn.__name__: fn.launches - before[fn] for fn in counters}
+        check(all(fn.launches - before[fn] == n for fn, n in counters.items()),
+              f"{tag} step {steps}: kernel launches {got}, want "
+              f"{ {fn.__name__: n for fn, n in counters.items()} }")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    results["paged_attention"]["launches"] = paged_attention_cuda.launches
-    results["kv_append"]["launches"] = kv_append_cuda.launches
+    wall = time.perf_counter() - t0 - untimed
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if dtype == "bfloat16" and tp == 1:
+        results["paged_attention"]["launches"] = paged_attention_cuda.launches
+        results["kv_append"]["launches"] = kv_append_cuda.launches
+    elif dtype == "bfloat16":
+        results["paged_attention_sharded"]["launches"] = \
+            paged_attention_sharded.launches
 
     st = eng.stats
     gen = sum(len(r.generated) for r in reqs)
-    check(all(r.state == "finished" for r in reqs), "a request did not finish")
-    check(all(len(r.generated) == 32 for r in reqs), "short generation")
+    check(all(r.state == "finished" for r in reqs),
+          f"{tag}: a request did not finish")
+    check(all(len(r.generated) == 32 for r in reqs), f"{tag}: short generation")
     check(all(0 <= t < cfg.vocab_padded for r in reqs for t in r.generated),
-          "token id out of range")
+          f"{tag}: token id out of range")
     clock = int(eng.pool.clock.cpu())
     check(st.warnings_fired == clock,
-          f"clock mirror {st.warnings_fired} != pool clock {clock}")
-    check(steady >= 4, f"only {steady} steady steps were checked")
-    log(f"engine: {len(reqs)} requests finished, {steps} steps, "
+          f"{tag}: clock mirror {st.warnings_fired} != pool clock {clock}")
+    check(steady >= 4, f"{tag}: only {steady} steady steps were checked")
+    log(f"{tag}: {len(reqs)} requests finished, {steps} steps, "
         f"{gen} generated tokens, warnings_fired == clock == {clock}, "
-        f"{steady} steady steps with {transfers} device->host transfers")
-    log(f"engine: {gen / wall:.1f} generated tokens/s, "
+        f"{steady} steady steps with {transfers} device->host transfers, "
+        f"launches {json.dumps(launches)}")
+    log(f"{tag}: {gen / wall:.1f} generated tokens/s, "
         f"{1e3 * wall / steps:.2f} ms/step, on {name}")
+    tokens = [list(r.generated) for r in reqs]
+    check(all(id(r) in kv_rows for r in reqs),
+          f"{tag}: a request's K/V was not read before its last step")
+    return (tokens, [kv_rows[id(r)] for r in reqs], tag,
+            [len(r.prompt) for r in reqs])
 
 
-def profile_phase(name, steps=5):
+def profile_phase(name, tp=1, steps=5):
     """``--profile``: a torch.profiler trace of ``steps`` steady decode steps
-    of the full-width engine (a fresh one, after the main path's counts were
-    read): wall and device-busy time per step, and the kernels that take
-    the device time."""
+    of the full-width engine at ``tp`` shards (a fresh one, after the main
+    path's counts were read): wall and device-busy time per step, and the
+    kernels that take the device time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -438,8 +624,11 @@ def profile_phase(name, steps=5):
 
     cfg = get_config("olmo-1b")
     params = init_decoder_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    eng = PagedServingEngine(cfg, params, device="cuda", num_pages=512,
-                             page_size=16, max_batch=8, prefill_chunk=16)
+    where = (dict(device="cuda") if tp == 1 else
+             dict(tensor_parallel=tp, devices=["cuda:0"] * tp))
+    eng = PagedServingEngine(cfg, params, num_pages=512, page_size=16,
+                             max_batch=8, prefill_chunk=16, **where)
+    del params
     rng = np.random.default_rng(1)
     for n in rng.integers(64, 257, 8):
         eng.submit(rng.integers(0, cfg.vocab, int(n)).tolist(), 64)
@@ -465,7 +654,8 @@ def profile_phase(name, steps=5):
         if dev > 0 and str(ev.device_type).endswith("CUDA"):
             rows.append((dev / 1e3 / steps, ev.count / steps, ev.key))
     busy = sum(r[0] for r in rows)
-    log(f"profile: {steps} steady decode steps on {name}: {wall:.2f} ms/step "
+    log(f"profile tp={tp}: {steps} steady decode steps on {name}: "
+        f"{wall:.2f} ms/step "
         f"wall (unprofiled), {busy:.2f} ms/step of device time in "
         f"{sum(r[1] for r in rows):.0f} device ops ({100 * busy / wall:.1f}% "
         f"busy)")
@@ -503,11 +693,46 @@ def main() -> int:
     results = {}
     kernel_phase(results)
     parity_phase()
-    engine_phase(results, name)
+    # float32 weights first: the yardstick the bf16 phases are held to
+    f32 = engine_phase(results, name, dtype="float32")
+    f32_tp = engine_phase(results, name, tp=TP, dtype="float32")
+    one = engine_phase(results, name)  # the main path, TP=1 ...
+    tp = engine_phase(results, name, tp=TP)  # ... and TP=2
+    # in float32 the two reductions round ~1e-7 apart: TP=2 is TP=1, in
+    # tokens and in the K/V of every position written
+    full = [kv["k"].shape[1] - plen for kv, plen in zip(f32[1], f32[3])]
+    dist = kv_distance(f32_tp, f32, full)
+    check(f32_tp[0] == f32[0] and all(b == 0 for _, b, _ in dist.values()),
+          f"float32: TP={TP} differs from TP=1 (tokens equal before "
+          f"divergences: {first_divergence(f32_tp, f32)}, K/V beyond "
+          f"tolerance: {dist})")
+    # in bf16 the row-parallel partials round apart, and greedy decoding
+    # over random weights meets near ties, so tokens are counted, not held;
+    # what is held is that TP=2 stays as close to float32 as TP=1 does, in
+    # prefill and in decode, at the positions where both still feed the
+    # model float32's tokens
+    depth = [min(a, b, n) for a, b, n in zip(first_divergence(one, f32),
+                                              first_divergence(tp, f32), full)]
+    check(sum(depth) > 0, "bf16: no generated position of TP=1 and TP="
+          f"{TP} shares float32's tokens")
+    d_one, d_tp = kv_distance(one, f32, depth), kv_distance(tp, f32, depth)
+    same = first_divergence(tp, one)
+    log(f"engine tp={TP}: {sum(same)} of {sum(map(len, one[0]))} bf16 "
+        f"tokens equal TP=1's before each request's first divergence "
+        f"(at {same})")
+    for part in ("prompt", "decode"):
+        e1, e2 = d_one[part][0], d_tp[part][0]
+        check(e2 <= 1.25 * e1, f"bf16 TP={TP} {part} K/V are {e2:.4g} from "
+              f"float32 against TP=1's {e1:.4g} (limit 1.25x)")
+        log(f"engine tp={TP}: bf16 {part} K/V {e2:.4g} from float32 against "
+            f"TP=1's {e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
+    del f32, f32_tp, one, tp
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
+        profile_phase(name, tp=TP)
 
-    kernels = [results["paged_attention"], results["kv_append"]]
+    kernels = [results["paged_attention"], results["kv_append"],
+               results["paged_attention_sharded"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -27,7 +27,14 @@ Module map (port -> JAX counterpart):
 ``kernels/csrc/paged_attention.cu``     paged_attention_pallas``
 ``kernels/kv_append.py`` +              ``repro/kernels/kv_append.py::
 ``kernels/csrc/kv_append.cu``           kv_append_pallas`` (C-token form)
+``kernels/paged_attention.py``          ``repro/kernels/paged_attention.py::
+(``paged_attention_sharded``)           paged_attention_sharded`` (kernel 1
+                                        launched once per shard)
 ``kernels/build.py``                    (nvcc build + ctypes load)
+``launch/mesh.py``                      ``repro/launch/mesh.py``
+                                        (``make_serving_mesh`` only)
+``sharding/rules.py``                   ``repro/sharding/rules.py`` (serving
+                                        TP subset: weights, paged arena)
 ``serving/paged_decode.py``             ``repro/serving/paged_decode.py``
 ``serving/kv_manager.py``               ``repro/serving/kv_manager.py``
 ``serving/runner.py``                   ``repro/serving/runner.py``
@@ -43,8 +50,10 @@ Module map (port -> JAX counterpart):
 
 Not yet ported: ``core/chaos.py``, ``serving/traffic.py`` and
 ``serving/parallel.py`` (chaos layer, open-loop traffic, data-parallel
-fleet); tensor parallelism and ``paged_attention_sharded``; MoE, VLM, SSM,
+fleet, and with it the 2D replica × tensor fleet); the replicated KV arena
+for head counts the tensor-parallel degree does not divide; MoE, VLM, SSM,
 hybrid and encoder-decoder families; training (``models/model.py``,
-``optim/``, ``data/``, ``checkpoint/``); ``launch/*``; the host arena and
+``optim/``, ``data/``, ``checkpoint/``); ``launch/*`` apart from
+``make_serving_mesh`` (``serve.py --tp`` included); the host arena and
 lock-free reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
 """

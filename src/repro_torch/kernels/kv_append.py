@@ -65,7 +65,8 @@ def kv_append_cuda(k_pages, v_pages, k_new, v_new, block_tables, lengths,
     """k/v pages [P, page, Hkv, D] (one layer's arena, written in place);
     k_new/v_new [B, C, Hkv, D] of the arena's dtype; block_tables [B, M],
     lengths [B] and n_new [B] int32; write_ok [B] bool — all contiguous CUDA
-    tensors on one device.  Launches on the current stream, no host read."""
+    tensors on one device.  Launches on the inputs' device's current
+    stream, no host read."""
     tensors = (k_pages, v_pages, k_new, v_new, block_tables, lengths, n_new,
                write_ok)
     _check(all(t.is_cuda for t in tensors), "every input must be a CUDA tensor")
@@ -88,12 +89,13 @@ def kv_append_cuda(k_pages, v_pages, k_new, v_new, block_tables, lengths,
            "block_tables must be [B, M]")
     _check(all(tuple(t.shape) == (B,) for t in (lengths, n_new, write_ok)),
            "lengths, n_new and write_ok must be [B]")
-    err = _lib()(k_new.data_ptr(), v_new.data_ptr(), n_new.data_ptr(),
-                 write_ok.data_ptr(), block_tables.data_ptr(),
-                 lengths.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 B, C, block_tables.shape[1], P, page,
-                 Hkv * D * k_pages.element_size(),
-                 torch.cuda.current_stream(k_pages.device).cuda_stream)
+    with torch.cuda.device(k_pages.device):  # launch on the inputs' device
+        err = _lib()(k_new.data_ptr(), v_new.data_ptr(), n_new.data_ptr(),
+                     write_ok.data_ptr(), block_tables.data_ptr(),
+                     lengths.data_ptr(), k_pages.data_ptr(),
+                     v_pages.data_ptr(), B, C, block_tables.shape[1], P, page,
+                     Hkv * D * k_pages.element_size(),
+                     torch.cuda.current_stream(k_pages.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kv_append kernel launch failed: CUDA error {err}")
     kv_append_cuda.launches += 1

@@ -11,12 +11,20 @@ from __future__ import annotations
 import torch
 
 from .kv_append import kv_append_cuda, kv_append_plain
-from .paged_attention import paged_attention_cuda, paged_attention_plain
+from .paged_attention import (paged_attention_cuda, paged_attention_plain,
+                              paged_attention_sharded,
+                              paged_attention_sharded_plain)
 from .ref import paged_attention_ref
 
 
+def _one(x):
+    """A replicated input given as one tensor or one per shard: the one."""
+    return x if isinstance(x, torch.Tensor) else x[0]
+
+
 def paged_attention(q, kv, block_tables, lengths, *,
-                    pages_per_compute_block: int = 1, chunk_lens=None):
+                    pages_per_compute_block: int = 1, chunk_lens=None,
+                    mesh=None):
     """Decode or chunked-prefill attention over the paged pool.
 
     q [B, Hq, D] (decode) or [B, C, Hq, D] (chunk); kv {'k','v': [P, page,
@@ -28,29 +36,46 @@ def paged_attention(q, kv, block_tables, lengths, *,
     as page 0) and the chunked form its chunked oracle; on CUDA both go
     through the kernel, which follows the Pallas kernel (−1 pages masked) —
     exactly the reference's ``impl="ref"`` / ``impl="pallas"`` split.
+
+    ``mesh`` (tensor-parallel serving, ``launch/mesh.py``): q is then a
+    sequence of per-shard q slabs and kv of per-shard {'k','v'} arena slabs
+    (shard s's KV heads, on ``mesh.devices[s]``); block_tables, lengths and
+    chunk_lens are one tensor or one per shard, and the per-shard outputs
+    are returned.  Over more than one shard both forms go through the
+    sharded kernel (its plain version on CPU tensors, which masks −1 pages
+    as the reference's interpret-mode sharded kernel does); a mesh of one
+    shard is the single-device path, as the reference routes through its
+    sharded kernel only when the 'model' axis is larger than 1.
     """
-    if q.dim() == 3:
-        # decode form: one query per row, classic ``pos < lengths`` mask —
-        # chunk_lens is meaningless here and is dropped on every path
-        chunk_lens = None
-    if not q.is_cuda:
-        if q.dim() == 3:
-            return paged_attention_ref(q, kv["k"], kv["v"], block_tables,
-                                       lengths)
-        if chunk_lens is None:
-            chunk_lens = torch.full((q.shape[0],), q.shape[1],
-                                    dtype=torch.int32, device=q.device)
-        return paged_attention_plain(q, kv["k"], kv["v"], block_tables,
-                                     lengths, chunk_lens)
-    squeeze = q.dim() == 3
-    q4 = q[:, None] if squeeze else q
-    if chunk_lens is None:
-        chunk_lens = torch.full((q4.shape[0],), q4.shape[1], dtype=torch.int32,
-                                device=q.device)
-    out = paged_attention_cuda(
-        q4.contiguous(), kv["k"], kv["v"], block_tables, lengths, chunk_lens,
-        pages_per_compute_block)
-    return out[:, 0] if squeeze else out
+    qs, kvs = (q, kv) if mesh is not None else ([q], [kv])
+    squeeze = qs[0].dim() == 3
+    cuda = qs[0].is_cuda
+    if squeeze and not cuda and (mesh is None or mesh.tp == 1):
+        out = paged_attention_ref(qs[0], kvs[0]["k"], kvs[0]["v"],
+                                  _one(block_tables), _one(lengths))
+        return out if mesh is None else [out]
+    q4 = [x[:, None].contiguous() if squeeze else x.contiguous() for x in qs]
+    if squeeze or chunk_lens is None:
+        # every query slot live; in the decode form (one query per row,
+        # classic ``pos < lengths`` mask) chunk_lens is meaningless and is
+        # dropped on every path
+        B, C = q4[0].shape[:2]
+        chunk_lens = torch.full((B,), C, dtype=torch.int32,
+                                device=q4[0].device)
+    ks = [x["k"] for x in kvs]
+    vs = [x["v"] for x in kvs]
+    if mesh is None or mesh.tp == 1:
+        args = (q4[0], ks[0], vs[0], _one(block_tables), _one(lengths),
+                _one(chunk_lens))
+        outs = [paged_attention_cuda(*args, pages_per_compute_block) if cuda
+                else paged_attention_plain(*args)]
+    else:
+        fn = paged_attention_sharded if cuda else paged_attention_sharded_plain
+        outs = fn(q4, ks, vs, block_tables, lengths, chunk_lens, mesh=mesh,
+                  n_kv_heads=sum(k.shape[2] for k in ks),
+                  pages_per_compute_block=pages_per_compute_block)
+    outs = [o[:, 0] for o in outs] if squeeze else outs
+    return outs[0] if mesh is None else outs
 
 
 def kv_append(k_pages, v_pages, k_new, v_new, block_tables, lengths, n_new,

@@ -11,6 +11,11 @@ on anything it does not take; :func:`paged_attention_plain` is the same
 function in plain PyTorch (the chunked oracle of ``kernels/ref.py``), which
 the dispatcher in ``kernels/ops.py`` uses for CPU tensors and
 ``chip_smoke.py`` holds the kernel against on the card.
+
+:func:`paged_attention_sharded` is the port of the TPU kernel
+``paged_attention_sharded`` (tensor parallelism): this kernel launched once
+per shard on the shard's slab of KV heads; its plain version
+:func:`paged_attention_sharded_plain` runs the plain version per shard.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     """q [B, C, Hq, D] and k/v pages [P, page, Hkv, D] (one layer's arena),
     each float32 or bfloat16; block_tables [B, M], lengths [B] and
     chunk_lens [B] int32, all contiguous CUDA tensors on one device.
-    Returns [B, C, Hq, D] in q's dtype.  Launches on the current stream and
-    never reads a device value on the host."""
+    Returns [B, C, Hq, D] in q's dtype.  Launches on the inputs' device's
+    current stream and never reads a device value on the host."""
     tensors = (q, k_pages, v_pages, block_tables, lengths, chunk_lens)
     _check(all(t.is_cuda for t in tensors), "every input must be a CUDA tensor")
     _check(len({t.device for t in tensors}) == 1, "inputs on different devices")
@@ -74,12 +79,15 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
            "lengths and chunk_lens must be [B]")
     ppcb = max(int(pages_per_compute_block), 1)
     out = torch.empty_like(q)
-    err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_tables.data_ptr(), lengths.data_ptr(),
-                 chunk_lens.data_ptr(), out.data_ptr(), B, C, Hq, Hkv, D,
-                 page, block_tables.shape[1], P, ppcb, _DTYPES[q.dtype],
-                 _DTYPES[k_pages.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    # the launch sizes itself for, and runs on, the CURRENT device: make
+    # that the inputs' device (a shard on cuda:1 while cuda:0 is current)
+    with torch.cuda.device(q.device):
+        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     block_tables.data_ptr(), lengths.data_ptr(),
+                     chunk_lens.data_ptr(), out.data_ptr(), B, C, Hq, Hkv, D,
+                     page, block_tables.shape[1], P, ppcb, _DTYPES[q.dtype],
+                     _DTYPES[k_pages.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -89,3 +97,65 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
 
 #: launches of the CUDA kernel since the last reset (a plain integer)
 paged_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: kernel 1 once per shard, on the shard's head slab
+
+
+def _replicated(x, mesh):
+    """One tensor per shard: a tensor goes to every shard's device (itself
+    where it already lies there); a sequence of per-shard tensors is kept."""
+    return mesh.replicate(x) if isinstance(x, torch.Tensor) else tuple(x)
+
+
+def _shard_args(qs, ks, vs, block_tables, lengths, chunk_lens, mesh,
+                n_kv_heads):
+    tp = mesh.tp
+    if n_kv_heads % tp != 0:
+        raise ValueError(f"n_kv_heads={n_kv_heads} not divisible by tp={tp}")
+    if not len(qs) == len(ks) == len(vs) == tp:
+        raise ValueError(f"paged_attention_sharded: want one q, k and v slab "
+                         f"per shard ({tp}), got {len(qs)}, {len(ks)}, "
+                         f"{len(vs)}")
+    if any(k.shape[2] != n_kv_heads // tp for k in ks):
+        raise ValueError(f"paged_attention_sharded: each k/v slab must hold "
+                         f"n_kv_heads // tp = {n_kv_heads // tp} heads")
+    return zip(qs, ks, vs, *(_replicated(t, mesh)
+                             for t in (block_tables, lengths, chunk_lens)))
+
+
+def paged_attention_sharded_plain(qs, ks, vs, block_tables, lengths,
+                                  chunk_lens, *, mesh, n_kv_heads: int,
+                                  pages_per_compute_block: int = 1):
+    """:func:`paged_attention_sharded` with the plain version per shard
+    (``pages_per_compute_block`` only tiles the kernel's loop: ignored)."""
+    return [paged_attention_plain(*a) for a in _shard_args(
+        qs, ks, vs, block_tables, lengths, chunk_lens, mesh, n_kv_heads)]
+
+
+def paged_attention_sharded(qs, ks, vs, block_tables, lengths, chunk_lens, *,
+                            mesh, n_kv_heads: int,
+                            pages_per_compute_block: int = 1):
+    """Port of ``repro.kernels.paged_attention.paged_attention_sharded``:
+    the CUDA kernel launched once per shard of ``mesh`` on that shard's
+    LOCAL head slab, with no collective (the caller sums the row-parallel
+    ``wo`` products of the outputs).
+
+    qs: per-shard q slabs [B, C, Hq/T, D]; ks/vs: per-shard arena slabs
+    [P, page, Hkv/T, D], shard s's on ``mesh.devices[s]``; block_tables,
+    lengths and chunk_lens: one tensor (copied to each shard's device
+    without a host sync) or one per shard.  ``n_kv_heads`` is the GLOBAL
+    count; T must divide it.  Returns the T per-shard outputs.  Counts one
+    launch per shard."""
+    outs = []
+    for q, k, v, bt, ln, cl in _shard_args(qs, ks, vs, block_tables, lengths,
+                                           chunk_lens, mesh, n_kv_heads):
+        outs.append(paged_attention_cuda(q, k, v, bt, ln, cl,
+                                         pages_per_compute_block))
+        paged_attention_sharded.launches += 1
+    return outs
+
+
+#: per-shard kernel launches made through the sharded entry point
+paged_attention_sharded.launches = 0

@@ -123,3 +123,14 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         """Where the weights live."""
         return self.embed["tok"].device
+
+    def tree(self) -> dict:
+        """The parameters as the nested dicts the module is built from."""
+        out = {"embed": dict(self.embed),
+               "blocks": [{n: dict(getattr(b, n))
+                           for n in ("ln1", "attn", "ln2", "mlp")}
+                          for b in self.blocks],
+               "final_norm": dict(self.final_norm)}
+        if self.lm_head is not None:
+            out["lm_head"] = self.lm_head
+        return out

@@ -1,9 +1,15 @@
 """PagedServingEngine: the thin facade over the layered serving stack.
 
 The port of ``repro.serving.engine``: the same constructor and surface,
-minus ``chaos``, ``tensor_parallel`` and ``devices`` (not yet ported), plus
-``device=`` — ``"cuda"`` unless the caller asks for ``"cpu"``.  Wiring and
-delegation over three layers with explicit contracts:
+minus ``chaos`` (not yet ported), with ``device=`` — ``"cuda"`` unless the
+caller asks for ``"cpu"``.  ``tensor_parallel=T, devices=[...]`` serves on
+T shards (``launch/mesh.py``): the engine splits the full parameters it is
+given by ``sharding/rules.py``, keeps one contiguous KV slab of Hkv/T heads
+per shard (a head count T does not divide is a ``ValueError``: the
+reference's replicated arena is not ported), and keeps the pool and
+per-slot state once on the first device (the reference replicates them
+over its mesh).  Wiring and delegation over
+three layers with explicit contracts:
 
 - :class:`repro_torch.serving.scheduler.Scheduler` — continuous-batching
   POLICY (admission, Sarathi budgets, AIMD backoff, victims, prefix index,
@@ -26,7 +32,9 @@ from repro_torch.core.pagepool import DEFAULT_PAGES_PER_SUPERBLOCK, DevicePagePo
 from repro_torch.core.reclaim_policy import ReclamationPolicy, make_policy
 from repro_torch.core.vm import ReleaseStrategy
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.sharding.rules import param_shards
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
 from .runner import ModelRunner
@@ -65,7 +73,9 @@ class PagedServingEngine:
                  victim_policy="youngest",
                  ladder=None,
                  clock=None,
-                 device=None):
+                 device=None,
+                 tensor_parallel: int = 1,
+                 devices=None):
         if attn_impl not in self.ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; known: "
                              f"{self.ATTN_IMPLS}")
@@ -73,11 +83,32 @@ class PagedServingEngine:
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_batch = max_batch
-        self.device = resolve_device(device)
-        # ``params``: a DecoderLM, or the nested dicts it is built from
-        model = (params if isinstance(params, DecoderLM)
-                 else DecoderLM(cfg, params))
-        self.params = model.to(self.device)
+        # tensor parallelism: a mesh of ``tensor_parallel`` shard devices;
+        # weights split by sharding/rules.py, the KV arena by its head axis,
+        # the pool and per-slot state once on the lead device — every shard
+        # works from the same pool decisions: one logical pool, per-shard
+        # payloads
+        self.tensor_parallel = int(tensor_parallel)
+        if self.tensor_parallel > 1:
+            if device is not None:
+                raise ValueError(
+                    "tensor_parallel > 1 takes a `devices` list, not a "
+                    "single `device`")
+            self.mesh = make_serving_mesh(self.tensor_parallel, devices)
+            self.device = self.mesh.lead
+            # ``params``: full weights (a DecoderLM or its nested dicts),
+            # split here as the reference's device_put with specs does
+            self.params = tuple(DecoderLM(cfg, p) for p in
+                                param_shards(cfg, params, self.mesh))
+        else:
+            self.mesh = None
+            if device is None and devices:
+                device = devices[0]
+            self.device = resolve_device(device)
+            # ``params``: a DecoderLM, or the nested dicts it is built from
+            model = (params if isinstance(params, DecoderLM)
+                     else DecoderLM(cfg, params))
+            self.params = model.to(self.device)
         self.stats = EngineStats()
         allocator = DevicePagePool(num_pages, pages_per_superblock,
                                    release_strategy, device=self.device)
@@ -93,13 +124,16 @@ class PagedServingEngine:
         self.stats.record_superblocks(allocator.view())
         self.kv_manager = KVCacheManager(
             allocator,
-            kv=kv_storage_init(cfg, num_pages, page_size, device=self.device),
+            kv=kv_storage_init(cfg, num_pages, page_size, device=self.device,
+                               mesh=self.mesh),
             max_batch=max_batch,
             max_pages_per_seq=max_pages_per_seq or num_pages,
-            page_size=page_size, stats=self.stats, device=self.device)
+            page_size=page_size, stats=self.stats, device=self.device,
+            mesh=self.mesh)
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
-            seed=seed, pages_per_compute_block=pages_per_compute_block)
+            seed=seed, pages_per_compute_block=pages_per_compute_block,
+            mesh=self.mesh)
         self.scheduler = Scheduler(
             self.kv_manager, self.stats, num_pages=num_pages,
             page_size=page_size, max_batch=max_batch,
@@ -271,7 +305,9 @@ class PagedServingEngine:
 
     @property
     def kv(self):
-        """The paged KV arena ({'k','v'} page arrays)."""
+        """The paged KV arena ({'k','v'} page arrays; a list of per-shard
+        slabs under tensor parallelism — ``kv_manager.gather_kv()`` joins
+        them)."""
         return self.kv_manager.kv
 
     @property

@@ -3,6 +3,9 @@
 The port of ``repro.serving.kv_manager``: the same mechanics and mirrors
 over the port's tensors.  The per-slot device arrays are updated in place
 by plain tensor writes where the reference runs donated jitted installs.
+Under tensor parallelism (``mesh=``) the per-slot arrays live once, on the
+mesh's lead device (the reference replicates them), and ``kv`` is the list
+of per-shard arena slabs; :meth:`KVCacheManager.gather_kv` joins them.
 
 The middle layer of the serving stack (ARCHITECTURE.md):
 
@@ -53,7 +56,8 @@ class DeviceStepState(NamedTuple):
 
     The runner treats every field as opaque (it forwards ``pool`` into the
     fused step without looking inside — the layering contract); the manager
-    owns the fields' meaning: ``kv`` is the paged KV arena, ``pool`` the
+    owns the fields' meaning: ``kv`` is the paged KV arena (a list of
+    per-shard slabs under tensor parallelism), ``pool`` the
     allocator's PagePool, the rest the per-slot arrays documented on
     ``fused_decode_step``."""
 
@@ -73,14 +77,15 @@ class KVCacheManager:
 
     def __init__(self, allocator: Allocator, *, kv, max_batch: int,
                  max_pages_per_seq: int, page_size: int, stats: EngineStats,
-                 device=None):
+                 device=None, mesh=None):
         self.allocator = allocator
         self.kv = kv
         self.stats = stats
         self.page_size = page_size
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         B, M = max_batch, max_pages_per_seq
         dev = self.device
         self._bt = torch.full((B, M), -1, dtype=torch.int32, device=dev)
@@ -108,6 +113,16 @@ class KVCacheManager:
         return DeviceStepState(self.kv, self.allocator.state, self._bt,
                                self._snap, self._len, self._last,
                                self._active, self._pbuf, self._plen)
+
+    def gather_kv(self) -> dict:
+        """The whole arena {'k','v': [L, P, page, Hkv, D]} on the lead
+        device: the shards' slabs joined on the KV-head axis (tests and the
+        smoke script; never on the serving path).  Without a mesh, the
+        arena itself."""
+        if self.mesh is None:
+            return self.kv
+        return {n: torch.cat([s[n].to(self.device) for s in self.kv], dim=3)
+                for n in ("k", "v")}
 
     def install_state(self, st: DeviceStepState) -> None:
         """Thread the (in-place updated, possibly still in-flight) state

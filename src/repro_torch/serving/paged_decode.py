@@ -12,6 +12,18 @@ table per sequence shared by all layers.
   protocol all run in one call that makes NO host read, so the engine's
   only per-step device→host transfer is its read of the six [B] results.
 
+Tensor parallelism (``mesh=``, a :class:`repro_torch.launch.mesh.ServingMesh`
+of T shard devices): the KV arena is one contiguous ``[L, P, page, Hkv/T,
+D]`` slab per shard and the model one ``DecoderLM`` of weight slices per
+shard (``sharding/rules.py``).  The pool, the grant, COW planning, token
+routing, selection and OA validation run once, on the lead device — the
+reference replicates them and every shard computes the same values, so one
+copy is the same single logical pool.  Per layer each shard projects its
+q/k/v heads, appends to its own slab, attends on its heads (the sharded
+kernel) and multiplies by its rows of ``wo``; the partial outputs are summed
+into the residual on the lead device (the reference's ``psum``), and the
+MLP does the same with its ``w_gate``/``w_up`` columns and ``w_down`` rows.
+
 Where the JAX step donates its state, this one updates it IN PLACE: the KV
 arena (the append kernel and the COW copy write into it), the pool's
 tensors, the block tables, the snapshots, ``lengths`` and ``last_tok``
@@ -24,6 +36,9 @@ and ``chunk_budget`` are plain host values the scheduler already plans.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.core import pagepool as pp
@@ -31,16 +46,35 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import kv_append, paged_attention, speculative_accept
 from repro_torch.models.layers import apply_norm, attention_qkv, mlp_apply
 from repro_torch.models.transformer import embed_tokens, unembed
+from repro_torch.launch.mesh import ServingMesh
+from repro_torch.sharding.rules import (ROW_BIASES, lm_head_split, mlp_split,
+                                        paged_kv_axis)
 
 
 def kv_storage_init(cfg, num_pages: int, page_size: int,
-                    dtype=torch.bfloat16, device=None):
+                    dtype=torch.bfloat16, device=None, mesh=None):
     """The persistent all-layer KV arena [L, P, page, Hkv, D] (pages stay
-    addressable forever; stale reads validate, never fault)."""
-    dev = resolve_device(device)
+    addressable forever; stale reads validate, never fault).
+
+    With ``mesh``: a list of T contiguous slabs [L, P, page, Hkv/T, D], shard
+    s's holding KV heads ``[s·Hkv/T, (s+1)·Hkv/T)`` of every page on
+    ``mesh.devices[s]`` (``sharding.rules.paged_kv_axis``).  A head count T
+    does not divide raises ``ValueError``: the reference's replicated-arena
+    layout for that case is not ported."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if mesh is None:
+        dev = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if paged_kv_axis(shape, mesh.tp) is None:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} is not divisible by tensor_parallel="
+            f"{mesh.tp}: the replicated KV arena the reference falls back to "
+            f"is not ported yet")
+    local = shape[:3] + (cfg.n_kv_heads // mesh.tp, cfg.head_dim)
+    return [{"k": torch.zeros(local, dtype=dtype, device=d),
+             "v": torch.zeros(local, dtype=dtype, device=d)}
+            for d in mesh.devices]
 
 
 def max_chunk_pages(chunk_size: int, page_size: int) -> int:
@@ -50,8 +84,51 @@ def max_chunk_pages(chunk_size: int, page_size: int) -> int:
     return 1 + (max(chunk_size, 1) - 1 + page_size - 1) // page_size
 
 
+@functools.cache
+def _local_cfg(cfg, tp: int):
+    """The config one of ``tp`` shards computes its heads with."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp)
+
+
+def _layout(model, kv, mesh, dev):
+    """(shard models, shard arenas, mesh): without a mesh, one shard of
+    everything on ``dev``."""
+    if mesh is None:
+        return [model], [kv], ServingMesh((dev,), 1)
+    return list(model), list(kv), mesh
+
+
+def _reduce(parts, dev):
+    """The shards' partial outputs summed on ``dev`` (the reference's
+    ``psum`` at a row-parallel product); one part is returned as it is."""
+    out = parts[0].to(dev, non_blocking=True)
+    for p in parts[1:]:
+        out = out + p.to(dev, non_blocking=True)
+    return out
+
+
+def _mlp_partial(cfg, h, p):
+    """One shard's MLP output before the row-parallel sum: without the
+    row-parallel biases, which the caller adds once after the sum."""
+    return mlp_apply(cfg, h, {k: v for k, v in p.items()
+                              if k not in ROW_BIASES})
+
+
+def _unembed(cfg, shards, mesh, x):
+    """Logits from the lead's tied table or whole ``lm_head``, or the
+    shards' ``lm_head`` column slices joined on the vocab axis."""
+    if not lm_head_split(cfg, mesh.tp):
+        return unembed(cfg, shards[0], x)
+    return torch.cat([(x.to(d, non_blocking=True) @ m.lm_head).to(
+        x.device, non_blocking=True) for m, d in zip(shards, mesh.devices)],
+        dim=-1)
+
+
 def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
-                pages_per_compute_block: int = 1, write_ok=None):
+                pages_per_compute_block: int = 1, write_ok=None, mesh=None):
     """Model math for a C-token chunk per row (C = 1 is plain decode).
 
     tokens [B, C] — chunk inputs at positions ``lengths[b] + j``; n_new [B]
@@ -59,33 +136,53 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     j gets the causal horizon of its position.  ``write_ok`` [B] bool masks
     all of a row's appends (a starved COW row must not write the shared page
     it failed to diverge from).  Each layer writes its K/V into the arena in
-    place, then attends.  Returns (x [B, C, d_model] final-normed, kv)."""
+    place, then attends.  With ``mesh``, ``model`` and ``kv`` are the
+    per-shard models and slabs (module docstring).  Returns (x [B, C,
+    d_model] final-normed, kv)."""
     if cfg.family != "dense" or cfg.moe:
         raise NotImplementedError("paged decode: dense decoder LMs only")
     B, C = tokens.shape
     dev = tokens.device
+    shards, kvs, mesh = _layout(model, kv, mesh, dev)
+    devs = mesh.devices
+    lcfg = _local_cfg(cfg, mesh.tp)
+    mlp_n = mesh.tp if mlp_split(cfg, mesh.tp) else 1
     positions = lengths.to(torch.int64)[:, None] + torch.arange(
         C, device=dev)[None, :]
-    x = embed_tokens(cfg, model.embed, tokens.to(torch.int64), positions)
+    x = embed_tokens(cfg, shards[0].embed, tokens.to(torch.int64), positions)
     n_new = n_new.to(torch.int32)
     total_len = (lengths + n_new).to(torch.int32)
     if write_ok is None:
         write_ok = torch.ones((B,), dtype=torch.bool, device=dev)
-    for layer, blk in enumerate(model.blocks):
-        kl, vl = kv["k"][layer], kv["v"][layer]  # [P, page, Hkv, D] views
-        h = apply_norm(cfg, x, blk.ln1)
-        q, k, v = attention_qkv(cfg, h, blk.attn, positions)
-        # the write precedes attention in every layer, on the same stream
-        kv_append(kl, vl, k.to(kl.dtype).contiguous(),
-                  v.to(vl.dtype).contiguous(), block_tables, lengths, n_new,
-                  write_ok)
-        att = paged_attention(q, {"k": kl, "v": vl}, block_tables, total_len,
-                              pages_per_compute_block=pages_per_compute_block,
-                              chunk_lens=n_new)
-        x = x + att.reshape(B, C, -1) @ blk.attn["wo"]
-        h2 = apply_norm(cfg, x, blk.ln2)
-        x = x + mlp_apply(cfg, h2, blk.mlp)
-    return apply_norm(cfg, x, model.final_norm), kv
+    poss, bts, lens, nns, oks, tots = map(
+        mesh.replicate,
+        (positions, block_tables, lengths, n_new, write_ok, total_len))
+    for layer in range(cfg.n_layers):
+        blks = [m.blocks[layer] for m in shards]
+        h = apply_norm(cfg, x, blks[0].ln1)
+        qs, slabs = [], []
+        for s, blk in enumerate(blks):
+            kl, vl = kvs[s]["k"][layer], kvs[s]["v"][layer]  # [P,page,Hkv,D]
+            q, k, v = attention_qkv(lcfg, h.to(devs[s], non_blocking=True),
+                                    blk.attn, poss[s])
+            # the write precedes attention in every layer, on the same stream
+            kv_append(kl, vl, k.to(kl.dtype).contiguous(),
+                      v.to(vl.dtype).contiguous(), bts[s], lens[s], nns[s],
+                      oks[s])
+            qs.append(q)
+            slabs.append({"k": kl, "v": vl})
+        atts = paged_attention(
+            qs, slabs, bts, tots, mesh=mesh, chunk_lens=nns,
+            pages_per_compute_block=pages_per_compute_block)
+        x = x + _reduce([a.reshape(B, C, -1) @ blk.attn["wo"]
+                         for a, blk in zip(atts, blks)], dev)
+        h2 = apply_norm(cfg, x, blks[0].ln2)
+        y = _reduce([_mlp_partial(cfg, h2.to(devs[s], non_blocking=True),
+                                  blks[s].mlp) for s in range(mlp_n)], dev)
+        for name in ROW_BIASES & blks[0].mlp.keys():
+            y = y + blks[0].mlp[name].to(y.dtype)
+        x = x + y
+    return apply_norm(cfg, x, shards[0].final_norm), kv
 
 
 def paged_decode_step(model, kv, block_tables, lengths, tokens, *, cfg):
@@ -115,7 +212,8 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
                       draft_toks=None, draft_lens=None,
                       do_validate: bool | None = None, *, cfg,
                       greedy: bool = True, pages_per_compute_block: int = 1,
-                      chunk_size: int = 1, speculative: bool = False):
+                      chunk_size: int = 1, speculative: bool = False,
+                      mesh=None):
     """The sync-free batched step, covering up to ``chunk_size`` prompt
     tokens per prefilling row (the port of the JAX ``fused_decode_step``;
     its docstring describes the six phases in full).
@@ -133,6 +231,10 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
     [B] device tensors (``speculative`` only); ``do_validate`` (None =
     True) — run the OA validation pass this step.
 
+    ``mesh``: tensor parallelism (module docstring) — ``model`` is then the
+    sequence of shard models and ``kv`` the list of shard slabs; every other
+    tensor lives on ``mesh.lead``.
+
     Returns (kv, pool, block_tables, snapshot, lengths, last_tok,
     tokens [B] int32, valid [B] bool, grant_info [B] int32, cow [B] bool,
     adv [B] int32, n_acc [B] int32), as the reference does.
@@ -143,11 +245,12 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
             "compares the verifier's argmax, and lossless rejection "
             "sampling for temperature > 0 is not implemented")
     B, M = block_tables.shape
-    page_size = kv["k"].shape[2]
-    num_pages = kv["k"].shape[1]
+    dev = block_tables.device
+    shards, kvs, layout = _layout(model, kv, mesh, dev)
+    page_size = kvs[0]["k"].shape[2]
+    num_pages = kvs[0]["k"].shape[1]
     C = max(int(chunk_size), 1)
     MG = max_chunk_pages(C, page_size)
-    dev = block_tables.device
     rows = torch.arange(B, device=dev)
     i64 = torch.int64
     ln = lengths.to(i64)
@@ -196,8 +299,10 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
     has = cow.any()  # indexing with it never reads the value on the host
     dst = torch.where(cow, g[:, 0], torch.where(has, g[first, 0], 0))
     src = torch.where(cow, cur0, torch.where(has, cur0[first], 0))
-    for name in ("k", "v"):
-        kv[name][:, dst] = kv[name][:, src]
+    for slab, d, s in zip(kvs, layout.replicate(dst),
+                          layout.replicate(src)):  # every shard's slab
+        for name in ("k", "v"):
+            slab[name][:, d] = slab[name][:, s]
     # ...and drop the row's reference on the original
     new_pool = pp._unshare_pages_impl(new_pool, torch.where(cow, cur0, -1))
     # install the grants and fold their versions into the snapshot
@@ -221,11 +326,13 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
     block_tables.copy_(new_bt)
     x, kv = _chunk_core(
         model, kv, block_tables, lengths, tok_in, n_new, cfg=cfg,
-        pages_per_compute_block=pages_per_compute_block, write_ok=grant_ok)
+        pages_per_compute_block=pages_per_compute_block, write_ok=grant_ok,
+        mesh=mesh)
 
     # (5) on-device token selection
     if speculative:
-        tgt = torch.argmax(unembed(cfg, model, x).float(), dim=-1)  # [B, C]
+        tgt = torch.argmax(_unembed(cfg, shards, layout, x).float(),
+                           dim=-1)  # [B, C]
         n_acc = speculative_accept(tgt, tok_in, dlens).to(i64)
         sel = torch.where(prefilling, torch.clamp(n_new - 1, 0, C - 1), n_acc)
         nxt = torch.gather(tgt, 1, sel[:, None])[:, 0]
@@ -234,7 +341,7 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
         last_idx = torch.clamp(n_new - 1, 0, C - 1)
         xl = torch.gather(x, 1, last_idx[:, None, None].expand(
             B, 1, x.shape[-1]))
-        logits = unembed(cfg, model, xl)[:, 0].float()
+        logits = _unembed(cfg, shards, layout, xl)[:, 0].float()
         if greedy:
             nxt = torch.argmax(logits, dim=-1)
         else:

@@ -7,6 +7,10 @@ It treats the device state bundle
 forwards the pool into the fused step and hands the updated state
 straight back to the manager, never reading an anchor or a version.
 
+Under tensor parallelism (``mesh=``) the model is the sequence of shard
+models and the step runs on every shard; its results still land on the
+mesh's lead device, so the one read stays one read.
+
 ``launch`` enqueues a step's work on the device and returns its six [B]
 results still on the device; ``collect`` packs them into one int32 tensor
 and reads it back with a single ``.cpu()`` — the one transfer of a steady
@@ -55,14 +59,16 @@ class ModelRunner:
 
     def __init__(self, cfg, model, *, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0,
-                 pages_per_compute_block: int = 1):
+                 pages_per_compute_block: int = 1, mesh=None):
         self.cfg = cfg
         self.model = model
         self.greedy = greedy
         self.temperature = float(temperature)
         self.pages_per_compute_block = pages_per_compute_block
-        # the sampling stream lives on the model's device, seeded once
-        self.generator = torch.Generator(device=model.device)
+        self.mesh = mesh
+        # the sampling stream lives on the (lead) model's device, seeded once
+        self.generator = torch.Generator(
+            device=mesh.lead if mesh is not None else model.device)
         self.generator.manual_seed(seed)
 
     def launch(self, kvm: KVCacheManager, *, chunk_size: int = 1,
@@ -93,7 +99,7 @@ class ModelRunner:
             self.generator, self.temperature, budget, draft_toks, draft_lens,
             do_validate, cfg=self.cfg, greedy=self.greedy,
             pages_per_compute_block=self.pages_per_compute_block,
-            chunk_size=chunk_size, speculative=speculative)
+            chunk_size=chunk_size, speculative=speculative, mesh=self.mesh)
         kvm.install_state(DeviceStepState(
             kv, pool, bt, snap, lengths, last,
             st.active, st.prompt_buf, st.prompt_len))

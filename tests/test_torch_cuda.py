@@ -116,3 +116,84 @@ def test_cuda_engine_matches_cpu_engine(cuda):
         assert st.warnings_fired == int(eng.pool.clock.cpu())
         out.append(([r.generated for r in reqs], st.steps, st.preemptions))
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,ppcb,Hq,Hkv,dtype", [(1, 1, 8, 4, "float32"),
+                                                 (16, 4, 16, 8, "bfloat16")])
+def test_cuda_sharded_attention_matches_plain(cuda, C, ppcb, Hq, Hkv, dtype):
+    """Two shards on one card: one launch of the kernel per shard on its KV
+    head slab, joined, against the plain version over the whole arena."""
+    from repro_torch.kernels.paged_attention import (paged_attention_plain,
+                                                     paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+    q, k, v, bt, ln, cl = _case(32, 4, Hkv, 64, Hq, 4, 6, C, seed=C + Hq,
+                                holes=True)
+    td = getattr(torch, dtype)
+    q, k, v, bt, ln, cl = [torch.from_numpy(a).to(cuda)
+                           for a in (q, k, v, bt, ln, cl)]
+    q, k, v = (a.to(td) for a in (q, k, v))
+    slabs = [[t.contiguous() for t in a.chunk(2, dim=2)] for a in (q, k, v)]
+    mesh = make_serving_mesh(2, [cuda, cuda])
+    before = paged_attention_sharded.launches
+    outs = paged_attention_sharded(*slabs, bt, ln, cl, mesh=mesh,
+                                   n_kv_heads=Hkv,
+                                   pages_per_compute_block=ppcb)
+    assert paged_attention_sharded.launches - before == 2
+    want = paged_attention_plain(q, k, v, bt, ln, cl)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(torch.cat(outs, dim=2).float(), want.float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_their_tensors_device(cuda):
+    """Both kernels on cuda:1 while cuda:0 is current: each wrapper launches
+    in its tensors' device context."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the launch device must differ from the "
+                    "current one")
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    dev = torch.device("cuda:1")
+    q, k, v, bt, ln, cl = _case(16, 4, 2, 64, 4, 3, 4, 4, seed=11)
+    args = [torch.from_numpy(a).to(dev) for a in (q, k, v, bt, ln, cl)]
+    with torch.cuda.device(0):
+        got = paged_attention_cuda(*args)
+        torch.cuda.synchronize(dev)
+        torch.testing.assert_close(got, paged_attention_plain(*args),
+                                   atol=1e-4, rtol=0)
+        kn = torch.randn((3, 4, 2, 64), device=dev)
+        pages = [args[1].clone(), args[2].clone()]
+        ref = [p.clone() for p in pages]
+        ok = torch.ones(3, dtype=torch.bool, device=dev)
+        kv_append_cuda(*pages, kn, kn, args[3], args[4], args[5], ok)
+        kv_append_plain(*ref, kn, kn, args[3], args[4], args[5], ok)
+        torch.cuda.synchronize(dev)
+        assert all(torch.equal(a, b) for a, b in zip(pages, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_engine_matches_tp1(cuda):
+    """The reduced olmo-1b engine at tensor_parallel=2 with both shards on
+    one card generates the tokens of the TP=1 engine (float32 weights)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = reduced(get_config("olmo-1b"))
+    params = init_decoder_lm(cfg, seed=4, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(3, 14, 5)]
+    out = []
+    for kw in (dict(device=cuda), dict(tensor_parallel=2,
+                                       devices=[cuda, cuda])):
+        eng = PagedServingEngine(cfg, params, num_pages=10, page_size=4,
+                                 max_batch=3, prefill_chunk=8, **kw)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        st = eng.run()
+        assert st.warnings_fired == int(eng.pool.clock.cpu())
+        out.append(([r.generated for r in reqs], st.steps, st.preemptions))
+    assert out[0] == out[1]

@@ -138,16 +138,9 @@ READS = ("cpu", "item", "tolist", "__bool__", "__int__", "__float__",
          "__index__", "__array__")
 
 
-def test_steady_step_makes_one_read(weights, monkeypatch):
-    """Every tensor read method is counted across steady decode steps (no
-    admission, no finish): the runner's single packed ``.cpu()`` must be the
-    only one.  (``numpy()`` is not counted: it cannot read a CUDA tensor;
-    nor is ``nonzero``, which only the CPU-only plain KV append calls — on
-    the card the append is a kernel, and ``chip_smoke.py`` counts every
-    synchronising CUDA call of a steady step there.)"""
-    _, _, tc, tm = weights
-    eng = PagedServingEngine(tc, tm, num_pages=32, page_size=4, max_batch=2,
-                             max_pages_per_seq=8, device="cpu")
+def _steady_reads(eng, monkeypatch, nsteps=6):
+    """Reads of tensor values across ``nsteps`` steady steps of ``eng``
+    (two requests admitted and three steps taken first)."""
     eng.submit([1, 2, 3, 4], 14)
     eng.submit([2, 3, 4, 5], 14)
     eng.scheduler.admit()
@@ -164,12 +157,35 @@ def test_steady_step_makes_one_read(weights, monkeypatch):
     for name in READS:
         monkeypatch.setattr(torch.Tensor, name, wrap(getattr(torch.Tensor,
                                                              name)))
-    nsteps = 6
     for _ in range(nsteps):  # crosses a page boundary: growth included
         eng.step()
     monkeypatch.undo()
-    assert count["n"] == nsteps, f"{count['n']} reads in {nsteps} steady steps"
     assert all(len(r.generated) < 14 for r in eng.running)
+    return count["n"]
+
+
+def test_steady_step_makes_one_read(weights, monkeypatch):
+    """Every tensor read method is counted across steady decode steps (no
+    admission, no finish): the runner's single packed ``.cpu()`` must be the
+    only one.  (``numpy()`` is not counted: it cannot read a CUDA tensor;
+    nor is ``nonzero``, which only the CPU-only plain KV append calls — on
+    the card the append is a kernel, and ``chip_smoke.py`` counts every
+    synchronising CUDA call of a steady step there.)"""
+    _, _, tc, tm = weights
+    eng = PagedServingEngine(tc, tm, num_pages=32, page_size=4, max_batch=2,
+                             max_pages_per_seq=8, device="cpu")
+    assert _steady_reads(eng, monkeypatch, 6) == 6
+
+
+def test_steady_step_makes_one_read_under_tensor_parallelism(weights,
+                                                             monkeypatch):
+    """The same count at ``tensor_parallel=2``: the shards' work adds no
+    read — the pool, selection and results stay on the lead device."""
+    _, _, tc, tm = weights
+    eng = PagedServingEngine(tc, tm, num_pages=32, page_size=4, max_batch=2,
+                             max_pages_per_seq=8, tensor_parallel=2,
+                             devices=["cpu", "cpu"])
+    assert _steady_reads(eng, monkeypatch, 6) == 6
 
 
 # ---------------------------------------------------------------------------
