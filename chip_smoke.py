@@ -7,13 +7,23 @@ run with a nonzero exit and no result line.
 
 1. Environment: the card's name and power limit, torch and CUDA versions;
    build every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source, all at once).
+   per source, all at once); where the toolkit has ``cuobjdump``, check
+   that exactly the bf16 x bf16 paged-attention instantiations issue
+   tensor-core (HMMA) instructions and that all load through cp.async.
 2. Kernels: each kernel against its plain PyTorch version on the card over
-   a sweep of cases, with the tolerance stated beside it, then timed at the
-   serving path's shapes beside its bound, its plain version and a library
-   yardstick.  Kernel 3 (``paged_attention_sharded``) is kernel 1 launched
-   once per shard on ``TP`` head slabs of one card; it is held against the
-   plain version over the joined arena.
+   a sweep of cases, with the tolerance stated beside it (kernel 1 also
+   over the split design's edge cases at split counts 1, 2, 4 and 8), then
+   timed at the serving path's shapes beside its bound, its plain version
+   and a library yardstick: call time (``ms``: CUDA events over 20
+   back-to-back calls, which the host sets for short kernels) and device
+   time (``device_ms``: torch.profiler's kernel time per call, L2 flushed
+   before each call by a 256 MB write; ``library_device_ms`` counts every
+   device op of the yardstick's call).  Kernel 1 is also timed on long
+   rows (8 rows of 3072-4096 tokens) and at each split count.  Kernel 3
+   (``paged_attention_sharded``) is kernel 1 launched once per shard on
+   ``TP`` head slabs of one card; it is held against the plain version over
+   the joined arena, and each head bit for bit against one launch over the
+   whole arena.
 3. Parity: a reduced olmo-1b engine on the card against the same engine on
    the CPU (plain versions), float32 weights: generated tokens must agree.
 4. Engines: full-width olmo-1b served through ``PagedServingEngine``, at
@@ -70,7 +80,9 @@ def check(cond, msg):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms over ``iters`` runs (CUDA events)."""
+    """Call time: mean time of one call of ``fn`` in ms over ``iters``
+    back-to-back calls (CUDA events around the loop), which the host's
+    enqueue time sets when a call's device work is shorter."""
     import torch
 
     for _ in range(warmup):
@@ -84,6 +96,41 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_FLUSH = []
+
+
+def device_ms(fn, match=None, iters=20):
+    """Device time: mean device time of one call of ``fn`` in ms, from
+    torch.profiler's kernel records, each call after a 256 MB write that
+    leaves the 50 MB L2 cold (as each layer's arena slab is in the engine).
+    Counts the kernels whose name holds ``match``, or with ``match=None``
+    every device op of the call; never the flush's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(256 * 2**20, dtype=torch.uint8,
+                                  device="cuda"))
+    flush = _FLUSH[0]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if (dev > 0 and str(ev.device_type).endswith("CUDA")
+                and "bitwise_not" not in ev.key
+                and (match is None or match in ev.key)):
+            total += dev
+    check(total > 0, f"the profiler recorded no device time for {match}")
+    return total / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +230,66 @@ def sdpa_yardstick(q, kp, vp, bt, ln, cl):
     return call
 
 
+def append_case(lens):
+    """Kernel 2's inputs at the serving path's shapes: one new bf16 token
+    for each of 8 rows of ``lens`` tokens into a zeroed 512-page arena of
+    16 heads of 128.  Returns (arena k, arena v), k_new, v_new, block
+    tables, lengths, n_new, write_ok."""
+    import numpy as np
+    import torch
+
+    B, C, Hkv, D, page, P, M = 8, 1, 16, 128, 16, 512, 512
+    bt = torch.as_tensor(np.random.default_rng(8).permutation(P)[: B * 32]
+                         .reshape(B, 32).astype(np.int32), device="cuda")
+    bt = torch.cat([bt, torch.full((B, M - 32), -1, dtype=torch.int32,
+                                   device="cuda")], 1)
+    ln = torch.as_tensor(lens.astype(np.int32), device="cuda")
+    n_new = torch.ones(B, dtype=torch.int32, device="cuda")
+    ok = torch.ones(B, dtype=torch.bool, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    kn, vn = (torch.randn((B, C, Hkv, D), generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    arena = [torch.zeros((P, page, Hkv, D), dtype=torch.bfloat16,
+                         device="cuda") for _ in range(2)]
+    return arena, kn, vn, bt, ln, n_new, ok
+
+
+def attention_row(case, label, plain_iters=5):
+    """Kernel 1 on ``case`` against its plain version, timed beside its
+    bound and the gather + SDPA yardstick, in call time and device time;
+    then its device time at each split count of the sweep that chose
+    ``SPLITS``.  Logs and returns the row."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (SPLITS,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+
+    err = (paged_attention_cuda(*case).float()
+           - paged_attention_plain(*case).float()).abs().max().item()
+    byts, ops = attention_work(case[0], case[1], *case[3:])
+    b_ms, by = bound_ms(byts, ops, "bfloat16")
+    yard = sdpa_yardstick(*case)
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: paged_attention_cuda(*case)),
+        device_ms=device_ms(lambda: paged_attention_cuda(*case),
+                            "paged_attention_kernel"),
+        plain_ms=time_ms(lambda: paged_attention_plain(*case),
+                         iters=plain_iters),
+        bound_ms=b_ms, bound_by=by, library_ms=time_ms(yard),
+        library_device_ms=device_ms(yard))
+    row["bound_share"] = b_ms / row["device_ms"]
+    sweep = {S: device_ms(lambda: paged_attention_cuda(*case, _splits=S),
+                          "paged_attention_kernel") for S in (1, 2, 4, 8)}
+    torch.cuda.synchronize()
+    log(f"{label}: " + json.dumps(row))
+    log(f"{label}: device ms by split count " + json.dumps(sweep)
+        + f" (SPLITS = {SPLITS}); {byts / 1e6:.1f} MB moved")
+    return row
+
+
 def kernel_phase(results):
     import numpy as np
     import torch
@@ -221,6 +328,59 @@ def kernel_phase(results):
     log(f"paged_attention: {n_cases} cases match the plain version "
         f"(bf16 tol 2e-2, f32 tol 1e-4); worst bf16 err {worst:.3g}")
 
+    # -- kernel 1: the split design's edge cases, at every split count -------
+    # (the cases of the tests, ``tests/split_cases.py``, at page 16, D 128)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from split_cases import split_edge_case
+
+    n_cases = 0
+    for S in (1, 2, 4, 8):
+        for C, Hq, Hkv in ((1, 16, 16), (16, 16, 16), (16, 32, 8)):
+            arrays = [torch.as_tensor(a, device="cuda") for a in
+                      split_edge_case(S, 16, C, Hq, Hkv, 128,
+                                      seed=400 + 10 * S + C)]
+            for dtype in (torch.bfloat16, torch.float32):
+                case = [a.to(dtype) for a in arrays[:3]] + arrays[3:]
+                got = paged_attention_cuda(*case, _splits=S)
+                want = paged_attention_plain(*case)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                check(math.isfinite(err) and err <= tol[dtype],
+                      f"paged_attention split edge S={S} C={C} Hq={Hq} "
+                      f"Hkv={Hkv} {dtype}: max err {err}")
+                check(bool((got[4] == 0).all()), "a row of length 0 must "
+                      "give zeros")
+                n_cases += 1
+    log(f"paged_attention: {n_cases} split edge cases (S in 1, 2, 4, 8; "
+        f"1-token row, row shorter than S pages, a split of -1 pages, a "
+        f"horizon across a split boundary, length 0, a clamped page id) "
+        f"match the plain version")
+
+    # -- kernel 1 timed at the serving path's shapes ---------------------------
+    # full olmo-1b engine: B=8 rows, block table width 512 (= num_pages),
+    # 16 heads of 128, bf16 arena of 512 pages of 16 tokens; lengths as in
+    # the engine phase mid-decode (prompt 64..256 plus 16 generated)
+    lens = np.random.default_rng(7).integers(64, 257, 8) + 16
+    rows = {}
+    for C in (1, 16):
+        case = attention_case(8, C, 16, 16, 128, 16, 512, 512, torch.bfloat16,
+                              seed=7, lens=lens)
+        case[5].fill_(C)
+        rows[C] = attention_row(case, f"paged_attention C={C}")
+    # the same kernel on long rows, where bytes dominate: 8 rows of
+    # 3072..4096 tokens over a 2048-page arena (~0.24 GB a launch)
+    long_lens = np.random.default_rng(9).integers(3072, 4097, 8)
+    case = attention_case(8, 1, 16, 16, 128, 16, 2048, 512, torch.bfloat16,
+                          seed=9, lens=long_lens)
+    case[5].fill_(1)
+    attention_row(case, "paged_attention long rows C=1", plain_iters=2)
+    results["paged_attention"] = dict(
+        name="paged_attention", route="cuda", source=PA_SRC, replaces=PA_TPU,
+        **rows[1])
+    results["paged_attention_c16"] = rows[16]
+
+    sharded_kernel(results, lens)
+
     # -- kernel 2: bit-exact sweep ---------------------------------------------
     # Hkv=16 is the TP=1 arena; Hkv=8 with a table of 512 pages is the
     # per-shard slab the TP=2 engine hands the kernel (2048-byte rows)
@@ -253,71 +413,37 @@ def kernel_phase(results):
     log(f"kv_append: {len(cases)} cases bit-exact against the plain version "
         f"(Hkv 16 and the TP={TP} slab's 8)")
 
-    # -- timing at the serving path's shapes ------------------------------------
-    # full olmo-1b engine: B=8 rows, block table width 512 (= num_pages),
-    # 16 heads of 128, bf16 arena of 512 pages of 16 tokens; lengths as in
-    # the engine phase mid-decode (prompt 64..256 plus 16 generated)
-    lens = np.random.default_rng(7).integers(64, 257, 8) + 16
-    rows = {}
-    for C in (1, 16):
-        q, kp, vp, bt, ln, cl = attention_case(8, C, 16, 16, 128, 16, 512,
-                                               512, torch.bfloat16, seed=7,
-                                               lens=lens)
-        cl.fill_(C)
-        err = (paged_attention_cuda(q, kp, vp, bt, ln, cl).float()
-               - paged_attention_plain(q, kp, vp, bt, ln, cl).float()
-               ).abs().max().item()
-        byts, ops = attention_work(q, kp, bt, ln, cl)
-        b_ms, by = bound_ms(byts, ops, "bfloat16")
-        rows[C] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: paged_attention_cuda(q, kp, vp, bt, ln, cl)),
-            plain_ms=time_ms(lambda: paged_attention_plain(q, kp, vp, bt, ln,
-                                                           cl), iters=5),
-            bound_ms=b_ms, bound_by=by,
-            library_ms=time_ms(sdpa_yardstick(q, kp, vp, bt, ln, cl)))
-        log(f"paged_attention C={C}: " + json.dumps(rows[C]))
-    results["paged_attention"] = dict(
-        name="paged_attention", route="cuda", source=PA_SRC, replaces=PA_TPU,
-        **rows[1])
-    results["paged_attention_c16"] = rows[16]
-
-    sharded_kernel(results, lens)
-
-    B, C, Hkv, D, page, P, M = 8, 1, 16, 128, 16, 512, 512
-    bt = torch.as_tensor(np.random.default_rng(8).permutation(P)[: B * 32]
-                         .reshape(B, 32).astype(np.int32), device="cuda")
-    bt = torch.cat([bt, torch.full((B, M - 32), -1, dtype=torch.int32,
-                                   device="cuda")], 1)
-    ln = torch.as_tensor(lens.astype(np.int32), device="cuda")
-    n_new = torch.ones(B, dtype=torch.int32, device="cuda")
-    ok = torch.ones(B, dtype=torch.bool, device="cuda")
-    kn = torch.randn((B, C, Hkv, D), device="cuda").to(torch.bfloat16)
-    vn = torch.randn((B, C, Hkv, D), device="cuda").to(torch.bfloat16)
-    arena = [torch.zeros((P, page, Hkv, D), dtype=torch.bfloat16,
-                         device="cuda") for _ in range(2)]
-    mine = [a.clone() for a in arena]
+    # -- kernel 2 timed at the serving path's shapes ---------------------------
+    B, C, Hkv, D = 8, 1, 16, 128
+    mine, kn, vn, bt, ln, n_new, ok = append_case(lens)
+    arena = [a.clone() for a in mine]
     kv_append_cuda(*mine, kn, vn, bt, ln, n_new, ok)
     kv_append_plain(*arena, kn, vn, bt, ln, n_new, ok)
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(mine, arena))
+    check(err == 0, f"kv_append at the serving shapes: max err {err}")
     pos = ln.long()
+    page = mine[0].shape[1]
     pidx = bt.long().gather(1, (pos // page)[:, None])[:, 0]
     sidx = pos % page
 
     def library():
         arena[0].index_put_((pidx, sidx), kn[:, 0])
         arena[1].index_put_((pidx, sidx), vn[:, 0])
+
+    def mine_call():
+        kv_append_cuda(*mine, kn, vn, bt, ln, n_new, ok)
     row_bytes = Hkv * D * 2
     byts = 2 * 2 * B * C * row_bytes + 4 * 3 * B
     b_ms, by = bound_ms(byts, 0, "bfloat16")
     results["kv_append"] = dict(
         name="kv_append", route="cuda", source=KA_SRC, replaces=KA_TPU,
-        max_abs_err=err,
-        ms=time_ms(lambda: kv_append_cuda(*mine, kn, vn, bt, ln, n_new, ok)),
+        max_abs_err=err, ms=time_ms(mine_call),
+        device_ms=device_ms(mine_call, "kv_append_kernel"),
         plain_ms=time_ms(lambda: kv_append_plain(*arena, kn, vn, bt, ln,
                                                  n_new, ok)),
-        bound_ms=b_ms, bound_by=by, library_ms=time_ms(library))
+        bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
+        library_device_ms=device_ms(library))
     log("kv_append C=1: " + json.dumps(
         {k: v for k, v in results["kv_append"].items()
          if k not in ("name", "route", "source", "replaces")}))
@@ -330,7 +456,7 @@ def sharded_kernel(results, lens):
     import torch
 
     from repro_torch.kernels.paged_attention import (
-        paged_attention_plain, paged_attention_sharded,
+        paged_attention_cuda, paged_attention_plain, paged_attention_sharded,
         paged_attention_sharded_plain)
     from repro_torch.launch.mesh import make_serving_mesh
 
@@ -350,12 +476,17 @@ def sharded_kernel(results, lens):
               f"{TP}")
         got = torch.cat(outs, dim=2)
         want = paged_attention_plain(q, kp, vp, bt, ln, cl)
+        # the split partition reads only each row's page count and SPLITS:
+        # every head of one launch over the whole arena, bit for bit
+        check(torch.equal(got, paged_attention_cuda(q, kp, vp, bt, ln, cl)),
+              f"{q.dtype}: per-shard launches differ from the full launch")
         torch.cuda.synchronize()
         return (got.float() - want.float()).abs().max().item()
 
     sweep = [(8, C, 16, 16, 128, 16, 512, 512, torch.bfloat16, lens)
              for C in (1, 16)]
     sweep += [(8, 16, 16, 16, 128, 16, 512, 512, torch.float32, lens),
+              (8, 1, 16, 16, 128, 16, 512, 512, torch.float32, lens),
               (8, 16, 32, 8, 128, 16, 256, 20, torch.bfloat16, None)]
     for i, (B, C, Hq, Hkv, D, page, P, M, dtype, ln_) in enumerate(sweep):
         err = run(*attention_case(B, C, Hq, Hkv, D, page, P, M, dtype,
@@ -364,7 +495,8 @@ def sharded_kernel(results, lens):
               f"paged_attention_sharded case {i}: max err {err}")
     log(f"paged_attention_sharded: {len(sweep)} cases over {TP} shards match "
         f"the plain version over the joined arena (bf16 tol 2e-2, f32 tol "
-        f"1e-4), {TP} launches per call")
+        f"1e-4) and the full-arena launch bit for bit (bf16 and f32), {TP} "
+        f"launches per call")
 
     rows = {}
     for C in (1, 16):
@@ -381,14 +513,22 @@ def sharded_kernel(results, lens):
         b_ms, by = bound_ms(byts, ops, "bfloat16")
         yard = [sdpa_yardstick(qq, kk, vv, bt, ln, cl)
                 for qq, kk, vv in zip(qs, ks, vs)]
+
+        def mine():
+            paged_attention_sharded(qs, ks, vs, bt, ln, cl, mesh=mesh,
+                                    n_kv_heads=16)
+
+        def library():
+            for f in yard:
+                f()
         rows[C] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: paged_attention_sharded(
-                qs, ks, vs, bt, ln, cl, mesh=mesh, n_kv_heads=16)),
+            max_abs_err=err, ms=time_ms(mine),
+            device_ms=device_ms(mine, "paged_attention_kernel"),
             plain_ms=time_ms(lambda: paged_attention_sharded_plain(
                 qs, ks, vs, bt, ln, cl, mesh=mesh, n_kv_heads=16), iters=5),
-            bound_ms=b_ms, bound_by=by,
-            library_ms=time_ms(lambda: [f() for f in yard]))
+            bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
+            library_device_ms=device_ms(library))
+        rows[C]["bound_share"] = b_ms / rows[C]["device_ms"]
         log(f"paged_attention_sharded C={C}, {TP} shards: "
             + json.dumps(rows[C]))
     results["paged_attention_sharded"] = dict(
@@ -659,8 +799,49 @@ def profile_phase(name, tp=1, steps=5):
         f"wall (unprofiled), {busy:.2f} ms/step of device time in "
         f"{sum(r[1] for r in rows):.0f} device ops ({100 * busy / wall:.1f}% "
         f"busy)")
+    attn = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
+    log(f"profile tp={tp}: kernel 1 {attn:.3f} ms/step, "
+        f"{100 * attn / busy:.1f}% of the device time")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
+
+
+def sass_check():
+    """What the paged-attention library compiled to: which kernel
+    instantiations issue tensor-core (HMMA) and cp.async (LDGSTS)
+    instructions, from ``cuobjdump -sass`` where the toolkit has it."""
+    from repro_torch.kernels import build
+
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        log("sass: no cuobjdump in the toolkit; not checked")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(build._target(
+        "paged_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    funcs = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = {"HMMA": 0, "LDGSTS": 0}
+        elif name is not None:
+            for op in ("HMMA", "LDGSTS"):
+                funcs[name][op] += f" {op}" in line
+    kern = {n: c for n, c in funcs.items() if "paged_attention_kernel" in n}
+    mma = [n for n, c in kern.items() if c["HMMA"]]
+    # the bf16 x bf16 instantiations: mangled, the bf16 type named for TQ
+    # and substituted for T; or demangled
+    bf16 = [n for n in kern if "I13__nv_bfloat16S" in n
+            or "__nv_bfloat16, __nv_bfloat16" in n]
+    log(f"sass: {len(kern)} paged_attention_kernel instantiations; HMMA in "
+        f"{len(mma)} ({sum(kern[n]['HMMA'] for n in mma)} instructions), "
+        f"LDGSTS in {sum(1 for c in kern.values() if c['LDGSTS'])}")
+    check(sorted(mma) == sorted(bf16) and mma,
+          f"tensor-core instructions must be in exactly the bf16 x bf16 "
+          f"instantiations: HMMA in {mma}, bf16 x bf16 {bf16}")
+    check(all(c["LDGSTS"] for c in kern.values()),
+          "every instantiation must load through cp.async (LDGSTS)")
 
 
 def main() -> int:
@@ -689,6 +870,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    sass_check()
 
     results = {}
     kernel_phase(results)
@@ -734,7 +916,8 @@ def main() -> int:
     kernels = [results["paged_attention"], results["kv_append"],
                results["paged_attention_sharded"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -16,6 +16,7 @@ holds the kernel against (bit-exact: both move the same bits).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,9 +48,10 @@ def kv_append_plain(k_pages, v_pages, k_new, v_new, block_tables, lengths,
     v_pages.index_put_((pages[b, j], slot[b, j]), v_new[b, j].to(v_pages.dtype))
 
 
-def _lib():
-    lib = load("kv_append")
-    fn = lib.kv_append_launch
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, typed once per process."""
+    fn = load("kv_append").kv_append_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
@@ -90,12 +92,12 @@ def kv_append_cuda(k_pages, v_pages, k_new, v_new, block_tables, lengths,
     _check(all(tuple(t.shape) == (B,) for t in (lengths, n_new, write_ok)),
            "lengths, n_new and write_ok must be [B]")
     with torch.cuda.device(k_pages.device):  # launch on the inputs' device
-        err = _lib()(k_new.data_ptr(), v_new.data_ptr(), n_new.data_ptr(),
-                     write_ok.data_ptr(), block_tables.data_ptr(),
-                     lengths.data_ptr(), k_pages.data_ptr(),
-                     v_pages.data_ptr(), B, C, block_tables.shape[1], P, page,
-                     Hkv * D * k_pages.element_size(),
-                     torch.cuda.current_stream(k_pages.device).cuda_stream)
+        err = _launcher()(
+            k_new.data_ptr(), v_new.data_ptr(), n_new.data_ptr(),
+            write_ok.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), B, C,
+            block_tables.shape[1], P, page, Hkv * D * k_pages.element_size(),
+            torch.cuda.current_stream(k_pages.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kv_append kernel launch failed: CUDA error {err}")
     kv_append_cuda.launches += 1

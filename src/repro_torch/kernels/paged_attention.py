@@ -2,9 +2,11 @@
 
 Port of the TPU kernel ``repro.kernels.paged_attention.paged_attention_pallas``
 (source: ``kernels/csrc/paged_attention.cu``; its header note says what
-bounds it and how the simple design answers).  Semantics are the Pallas
-kernel's: C queries per row over the row's pages with the in-chunk causal
-mask, −1 pages masked, float32 online softmax, zeros for rows of length 0.
+bounds it and what the design does about it: split-KV over a row's pages
+merged in the launch, a ``cp.async`` page ring, bf16 ``mma.sync`` tiles).
+Semantics are the Pallas kernel's: C queries per row over the row's pages
+with the in-chunk causal mask, −1 pages masked, float32 online softmax,
+zeros for rows of length 0.
 
 :func:`paged_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`paged_attention_plain` is the same
@@ -21,6 +23,7 @@ per shard on the shard's slab of KV heads; its plain version
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,23 +31,47 @@ from .build import load
 from .ref import paged_attention_chunked_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernel's split count S: each (row, KV head) is cut into S contiguous
+#: shares of its pages, one block each, merged in the launch.  One constant
+#: for every launch (never derived from B, Hkv or the shard count, so each
+#: head's output is bitwise the same at every TP degree); chosen on the
+#: card by ``chip_smoke.py``'s split sweep (PERF.md §6)
+SPLITS = 2
+_MAX_SPLITS = 8
+_MAX_ROWS = 64  # query slots per block: C * G beyond it is cut into groups
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
                           chunk_lens):
-    """The kernel's function in plain PyTorch (the kernel's
-    ``pages_per_compute_block`` only tiles its loop; results do not depend
-    on it)."""
+    """The kernel's function in plain PyTorch (the kernel ignores
+    ``pages_per_compute_block``, so this version has none)."""
     return paged_attention_chunked_ref(q, k_pages, v_pages, block_tables,
                                        lengths, chunk_lens)
 
 
-def _lib():
-    lib = load("paged_attention")
-    fn = lib.paged_attention_launch
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, typed once per process."""
+    fn = load("paged_attention").paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return fn
+
+
+_tickets: dict = {}
+
+
+def _ticket_buffer(device, stream: int, n: int):
+    """The zeroed int32 ticket counters of the split merge, one buffer per
+    (device, stream): the last block of each (row, head) resets its ticket,
+    so the buffer is zero again whenever a launch has ended."""
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -53,12 +80,17 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
-                         chunk_lens, pages_per_compute_block: int = 1):
+                         chunk_lens, pages_per_compute_block: int = 1, *,
+                         _splits: int | None = None):
     """q [B, C, Hq, D] and k/v pages [P, page, Hkv, D] (one layer's arena),
-    each float32 or bfloat16; block_tables [B, M], lengths [B] and
-    chunk_lens [B] int32, all contiguous CUDA tensors on one device.
-    Returns [B, C, Hq, D] in q's dtype.  Launches on the inputs' device's
-    current stream and never reads a device value on the host."""
+    each float32 or bfloat16, D one of :data:`HEAD_DIMS`; block_tables
+    [B, M], lengths [B] and chunk_lens [B] int32, all contiguous CUDA
+    tensors on one device.  Returns [B, C, Hq, D] in q's dtype.  Launches on
+    the inputs' device's current stream and never reads a device value on
+    the host.  ``pages_per_compute_block`` is accepted for the reference's
+    signature and ignored: the kernel's stage size does not depend on it.
+    ``_splits`` overrides :data:`SPLITS` for the split sweep and its
+    tests only; the serving path never passes it."""
     tensors = (q, k_pages, v_pages, block_tables, lengths, chunk_lens)
     _check(all(t.is_cuda for t in tensors), "every input must be a CUDA tensor")
     _check(len({t.device for t in tensors}) == 1, "inputs on different devices")
@@ -68,26 +100,40 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     _check(all(t.dtype == torch.int32 for t in tensors[3:]),
            "block_tables, lengths and chunk_lens must be int32")
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
+    _check(all(t.data_ptr() % 16 == 0 for t in tensors[:3]),
+           "q and the pages must be 16-byte aligned")
     _check(q.dim() == 4 and k_pages.dim() == 4, "q and pages must be 4-D")
     B, C, Hq, D = q.shape
     P, page, Hkv, Dk = k_pages.shape
     _check(tuple(v_pages.shape) == tuple(k_pages.shape), "k/v shapes differ")
     _check(Dk == D and Hkv > 0 and Hq % Hkv == 0, "head shapes do not match")
+    _check(D in HEAD_DIMS, f"head dim {D} is not one of {HEAD_DIMS}")
     _check(block_tables.dim() == 2 and block_tables.shape[0] == B,
            "block_tables must be [B, M]")
     _check(tuple(lengths.shape) == (B,) and tuple(chunk_lens.shape) == (B,),
            "lengths and chunk_lens must be [B]")
-    ppcb = max(int(pages_per_compute_block), 1)
+    S = SPLITS if _splits is None else int(_splits)
+    _check(1 <= S <= _MAX_SPLITS, f"splits must be in 1..{_MAX_SPLITS}")
     out = torch.empty_like(q)
+    nq = C * (Hq // Hkv)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = tickets = None
+    if S > 1:
+        # per split: float32 acc [nq, D], then m and l [nq] of every split
+        part = torch.empty(B * Hkv * S * nq * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        tickets = _ticket_buffer(q.device, stream,
+                                 B * Hkv * -(-nq // _MAX_ROWS))
     # the launch sizes itself for, and runs on, the CURRENT device: make
     # that the inputs' device (a shard on cuda:1 while cuda:0 is current)
     with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     block_tables.data_ptr(), lengths.data_ptr(),
-                     chunk_lens.data_ptr(), out.data_ptr(), B, C, Hq, Hkv, D,
-                     page, block_tables.shape[1], P, ppcb, _DTYPES[q.dtype],
-                     _DTYPES[k_pages.dtype],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+        err = _launcher()(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), chunk_lens.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), B, C, Hq, Hkv, D,
+            page, block_tables.shape[1], P, S, _DTYPES[q.dtype],
+            _DTYPES[k_pages.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -129,7 +175,7 @@ def paged_attention_sharded_plain(qs, ks, vs, block_tables, lengths,
                                   chunk_lens, *, mesh, n_kv_heads: int,
                                   pages_per_compute_block: int = 1):
     """:func:`paged_attention_sharded` with the plain version per shard
-    (``pages_per_compute_block`` only tiles the kernel's loop: ignored)."""
+    (``pages_per_compute_block`` is ignored, as the kernel ignores it)."""
     return [paged_attention_plain(*a) for a in _shard_args(
         qs, ks, vs, block_tables, lengths, chunk_lens, mesh, n_kv_heads)]
 

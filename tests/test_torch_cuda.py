@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.kv_append import kv_append_plain
+from split_cases import split_edge_case
 
 torch.set_num_threads(1)
 
@@ -60,6 +61,44 @@ def test_cuda_paged_attention_matches_plain(cuda, C, ppcb, dtype):
     want = paged_attention_plain(*args)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("C,Hq,Hkv", [(1, 4, 4), (16, 4, 4), (16, 8, 2)],
+                         ids=["decode", "chunk", "gqa"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_attention_split_edges(cuda, S, C, Hq, Hkv, dtype):
+    """The split-KV kernel at every split count against the plain version
+    on rows that end inside, before and across split boundaries."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    td = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            split_edge_case(S, 16, C, Hq, Hkv, 128, seed=S * 7 + C)]
+    args[:3] = [a.to(td) for a in args[:3]]
+    got = paged_attention_cuda(*args, _splits=S)
+    want = paged_attention_plain(*args)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert bool((got[4] == 0).all())  # the row of length 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_heads_are_bitwise_the_same_at_every_shard_count(cuda, dtype):
+    """Each head's output of one launch over the whole arena equals, bit
+    for bit, that of the per-shard launches over head slabs (TP=2 and 4)."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    td = getattr(torch, dtype)
+    q, k, v, bt, ln, cl = [torch.from_numpy(a).to(cuda) for a in
+                           split_edge_case(4, 16, 16, 16, 8, 128, seed=5)]
+    q, k, v = (a.to(td) for a in (q, k, v))
+    full = paged_attention_cuda(q, k, v, bt, ln, cl)
+    for tp in (2, 4):
+        outs = [paged_attention_cuda(*(t.contiguous() for t in sl), bt, ln, cl)
+                for sl in zip(*(a.chunk(tp, dim=2) for a in (q, k, v)))]
+        assert torch.equal(torch.cat(outs, dim=2), full)
 
 
 @pytest.mark.cuda

@@ -5,8 +5,13 @@ held to the JAX oracles (``kernels/ref.py``) and to the Pallas kernels in
 interpret mode, as ``tests/test_kernels.py`` runs them.  Tolerance: 2e-5
 abs/rel in float32 (summation order only); the KV append is bit-exact.
 The CUDA kernels are held to these plain versions on the card by
-``tests/test_torch_cuda.py``.
+``tests/test_torch_cuda.py``; the CUDA attention kernel's split-and-merge
+algorithm is emulated here in plain torch (``_split_emulation``) and held
+to the same oracles.
 """
+
+import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,7 @@ from repro.kernels.ref import (paged_attention_chunked_ref,
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_append import kv_append_plain
 from repro_torch.kernels.ref import speculative_accept_ref
+from split_cases import split_edge_case
 
 torch.set_num_threads(1)
 
@@ -174,3 +180,110 @@ def test_speculative_accept_matches_reference():
         if C > 1:
             np.testing.assert_array_equal(got, np.asarray(jax_accept(
                 jnp.asarray(tgt), jnp.asarray(chunk), jnp.asarray(dl))))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split-KV algorithm (kernels/csrc/paged_attention.cu),
+# emulated in plain torch: per-row page partition from lengths and S,
+# per-split online softmax over 16-token tiles with the kernel's guards,
+# the merge of the S partials in split order
+
+
+def _split_emulation(q, k, v, bt, ln, cl, S, tile=16):
+    """[B, C, Hq, D] float32, computed one (row, KV head) at a time as the
+    kernel's blocks do: split s of a row takes pages [s*n//S, (s+1)*n//S)
+    of its n = min(ceil(len/page), M) pages; an empty split gives m = −inf,
+    l = 0 and is skipped by the merge."""
+    q, k, v = (torch.as_tensor(a, dtype=torch.float32) for a in (q, k, v))
+    bt = torch.as_tensor(bt).long()
+    B, C, Hq, D = q.shape
+    P, page, Hkv, _ = k.shape
+    G, M = Hq // Hkv, bt.shape[1]
+    out = torch.zeros(B, C, Hq, D)
+    for b in range(B):
+        L, CL = int(ln[b]), int(cl[b])
+        n = min(-(-L // page), M) if L > 0 else 0
+        lim = torch.tensor([min(L - CL + c + 1, L) for c in range(C)]
+                           ).repeat_interleave(G)  # slot qi = c * G + g
+        for h in range(Hkv):
+            qh = q[b, :, h * G:(h + 1) * G].reshape(C * G, D)
+            parts = []
+            for s in range(S):
+                t0, t1 = s * n // S * page, min((s + 1) * n // S * page, L)
+                m = torch.full((C * G,), -math.inf)
+                l = torch.zeros(C * G)
+                acc = torch.zeros(C * G, D)
+                for a in range(t0, t1, tile):
+                    ts = torch.arange(a, min(a + tile, t1))
+                    pid = bt[b, ts // page]
+                    mapped = pid >= 0
+                    pid = pid.clamp(0, P - 1)
+                    kt = k[pid, ts % page, h]
+                    vt = torch.where(mapped[:, None], v[pid, ts % page, h], 0.)
+                    live = mapped[None, :] & (ts[None, :] < lim[:, None])
+                    sc = torch.where(live, qh @ kt.T / math.sqrt(D), -math.inf)
+                    m_new = torch.maximum(m, sc.amax(1))
+                    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.)
+                    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                        0.)
+                    p = torch.where(live, torch.exp(sc - m_safe[:, None]), 0.)
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    m = m_new
+                parts.append((m, l, acc))
+            m_tot = torch.stack([m for m, _, _ in parts]).amax(0)
+            m_safe = torch.where(torch.isfinite(m_tot), m_tot, 0.)
+            l = torch.zeros(C * G)
+            acc = torch.zeros(C * G, D)
+            for m_s, l_s, a_s in parts:  # in split order
+                keep = torch.isfinite(m_s)
+                f = torch.where(keep, torch.exp(m_s - m_safe), 0.)
+                l = l + torch.where(keep, l_s * f, 0.)
+                acc = acc + torch.where(keep[:, None], a_s * f[:, None], 0.)
+            out[b, :, h * G:(h + 1) * G] = (
+                acc / l.clamp(min=1e-30)[:, None]).reshape(C, G, D)
+    return out
+
+
+@functools.cache
+def _edge_refs(S, C):
+    """An edge case (page 4, GQA 4:2, D 16) with the JAX package's chunked
+    oracle and its Pallas kernel in interpret mode on it."""
+    case = split_edge_case(S, 4, C, 4, 2, 16, seed=S * 10 + C)
+    J = jnp.asarray
+    q, k, v, bt, ln, cl = map(J, case)
+    ref = paged_attention_chunked_ref(q, k, v, bt, ln, cl)
+    pallas = paged_attention_pallas(q, k, v, bt, ln, page_size=4,
+                                    n_kv_heads=2, interpret=True,
+                                    chunk_lens=cl)
+    return case, np.asarray(ref), np.asarray(pallas)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [1, 8])
+def test_split_emulation_matches_plain_ref_and_pallas(S, C):
+    """The kernel's split-and-merge, at every split count, on rows that end
+    before, inside and across split boundaries, equals the plain version,
+    the JAX chunked oracle and the interpret-mode Pallas kernel."""
+    case, ref, pallas = _edge_refs(S, C)
+    mine = _split_emulation(*case, S).numpy()
+    assert np.all(mine[4] == 0)  # the row of length 0
+    np.testing.assert_allclose(mine, _port(*case), **TOL)
+    np.testing.assert_allclose(mine, ref, **TOL)
+    np.testing.assert_allclose(mine, pallas, **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_split_emulation_heads_do_not_depend_on_hkv_or_shards(S):
+    """A head's output is bitwise the same from the whole arena (Hkv=4),
+    from 2 shards of 2 heads and from 4 shards of 1: the partition reads
+    only the row's page count and S."""
+    q, k, v, bt, ln, cl = split_edge_case(S, 4, 8, 8, 4, 16, seed=S)
+    full = _split_emulation(q, k, v, bt, ln, cl, S)
+    for tp in (2, 4):
+        hq, hk = 8 // tp, 4 // tp
+        outs = [_split_emulation(q[:, :, i * hq:(i + 1) * hq],
+                                 k[:, :, i * hk:(i + 1) * hk],
+                                 v[:, :, i * hk:(i + 1) * hk], bt, ln, cl, S)
+                for i in range(tp)]
+        assert torch.equal(torch.cat(outs, dim=2), full)
