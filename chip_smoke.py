@@ -23,25 +23,34 @@ run with a nonzero exit and no result line.
    (``paged_attention_sharded``) is kernel 1 launched once per shard on
    ``TP`` head slabs of one card; it is held against the plain version over
    the joined arena, and each head bit for bit against one launch over the
-   whole arena.
+   whole arena, with and without the fused append.  The fused launch
+   (``paged_attention_append_cuda``: kernel 2's append inside kernel 1's
+   launch, the serving path's one launch per layer) is held bit for bit,
+   arena and output, against ``kv_append_cuda`` + ``paged_attention_cuda``
+   on a copy, its arena bit-exact and its output within kernel 1's
+   tolerance against the plain version, over kernel 1's sweep, the split
+   edge cases, long rows, GQA with two query groups, denied rows, -1 pages
+   and page ids past the arena; then timed as kernel 1 is, beside the pair.
 3. Parity: a reduced olmo-1b engine on the card against the same engine on
    the CPU (plain versions), float32 weights: generated tokens must agree.
 4. Engines: full-width olmo-1b served through ``PagedServingEngine``, at
    TP=1 and at ``tensor_parallel=TP`` with every shard on this card
    (``devices=["cuda:0"] * TP``), with seeded float32 weights and then the
    same weights in bf16 (the main path).  In each run every request must
-   finish, the clock mirror must equal the pool's clock, each kernel must
-   launch once per layer per shard per step, and a steady step must make
-   exactly one device->host transfer.  Across runs: in float32, TP=2 must
+   finish, the clock mirror must equal the pool's clock, the fused launch
+   must run once per layer per shard per step and ``kv_append_cuda`` never,
+   and a steady step must make exactly one device->host transfer.  Across runs: in float32, TP=2 must
    equal TP=1 (tokens, and the K/V of every position written, within
    2e-2 + 2e-2|x|); in bf16, TP=2's K/V must stay as close to float32's as
    TP=1's do (mean abs difference within 1.25x), over the prompt positions
    and, apart, over the generated positions where both still feed the
    model float32's tokens; the tokens TP=2 shares with TP=1 are printed.
 
-The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2 and
-the sharded kernel 3; launches from the bf16 TP=1 run for kernels 1 and 2,
-from the bf16 TP=2 run for kernel 3); the last line is
+The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
+sharded kernel 3 and the fused launch; launches from the bf16 TP=1 run for
+kernels 1 and 2 and the fused launch, from the bf16 TP=2 run for kernel 3;
+kernel 1 counts its launches with and without the append, kernel 2 is off
+the serving path and counts 0); the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA.
 ``--profile`` adds a torch.profiler breakdown of steady full-width decode
 steps at TP=1 and at TP=2 after the engine runs.
@@ -106,7 +115,10 @@ def device_ms(fn, match=None, iters=20):
     torch.profiler's kernel records, each call after a 256 MB write that
     leaves the 50 MB L2 cold (as each layer's arena slab is in the engine).
     Counts the kernels whose name holds ``match``, or with ``match=None``
-    every device op of the call; never the flush's."""
+    every device op of the call; never the flush's.  A trace with no such
+    device time (the profiler has returned one on the H100, for 20 calls
+    that launched 40 of the kernels it looked for) is logged and taken
+    again, three traces at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,21 +128,27 @@ def device_ms(fn, match=None, iters=20):
     flush = _FLUSH[0]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0))
-        if (dev > 0 and str(ev.device_type).endswith("CUDA")
-                and "bitwise_not" not in ev.key
-                and (match is None or match in ev.key)):
-            total += dev
-    check(total > 0, f"the profiler recorded no device time for {match}")
-    return total / 1e3 / iters
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        seen = []
+        for ev in prof.key_averages():
+            dev = getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+            if dev > 0 and str(ev.device_type).endswith("CUDA"):
+                seen.append(ev.key[:40])
+                if "bitwise_not" not in ev.key and (match is None
+                                                    or match in ev.key):
+                    total += dev
+        if total > 0:
+            return total / 1e3 / iters
+        log(f"device_ms: trace {attempt} of 3 holds no device time for "
+            f"{match}; its device ops: {seen}")
+    check(False, f"the profiler recorded no device time for {match}")
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +466,170 @@ def kernel_phase(results):
         {k: v for k, v in results["kv_append"].items()
          if k not in ("name", "route", "source", "replaces")}))
 
+    fused_kernel(results, lens)
+
+
+def append_inputs(case, seed, deny=1):
+    """The fused append's k_new, v_new [B, C, Hkv, D] (the arena's dtype)
+    and write_ok [B] (row ``deny`` False, None for none) for an
+    :func:`attention_case`; its row of length 0 gets chunk length 0 (rows
+    need ``chunk_lens <= lengths``)."""
+    import torch
+
+    q, kp, vp, bt, ln, cl = case
+    B, C = q.shape[:2]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    kn, vn = (torch.randn((B, C) + tuple(kp.shape[2:]), generator=g,
+                          device="cuda").to(kp.dtype) for _ in range(2))
+    cl.masked_fill_(ln == 0, 0)
+    ok = torch.ones(B, dtype=torch.bool, device="cuda")
+    if deny is not None:
+        ok[deny] = False
+    return kn, vn, ok
+
+
+def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None):
+    """The fused launch on copies of the arena against ``kv_append_cuda`` +
+    ``paged_attention_cuda`` (bitwise, arena and output) and against the
+    plain version (arena bit-exact, output within kernel 1's tolerance).
+    Returns the max abs error against the plain version."""
+    import torch
+
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_append_plain,
+        paged_attention_cuda)
+
+    pair, mine, plain = ([kp.clone(), vp.clone()] for _ in range(3))
+    kv_append_cuda(*pair, kn, vn, bt, ln - cl, cl, ok)
+    want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S)
+    got = paged_attention_append_cuda(q, *mine, kn, vn, bt, ln, cl, ok,
+                                      _splits=S)
+    ref = paged_attention_append_plain(q, *plain, kn, vn, bt, ln, cl, ok)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(mine, pair)),
+        f"{label}: the fused launch differs from kv_append_cuda + "
+        f"paged_attention_cuda")
+    check(all(torch.equal(a, b) for a, b in zip(mine, plain)),
+          f"{label}: the fused launch's arena is not bit-exact against the "
+          f"plain version")
+    check(not ok.any() or not torch.equal(mine[0], kp),
+          f"{label}: the fused launch wrote nothing")
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 2e-2 if torch.bfloat16 in (q.dtype, kp.dtype) else 1e-4
+    check(math.isfinite(err) and err <= tol,
+          f"{label}: max err {err} against the plain version (tol {tol})")
+    return err
+
+
+def fused_kernel(results, lens):
+    """Kernel 2 fused into kernel 1's launch: bitwise against the
+    two-launch pair over kernel 1's cases, then timed at the serving
+    path's shapes beside the pair, the plain version and the library."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_append_plain,
+        paged_attention_cuda)
+    from split_cases import append_edge_case
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_cases = 0
+    worst = 0.0
+    # kernel 1's sweep shapes, a GQA 8:1 case with two query groups of 64
+    # (C * G = 128), and float32 q over the bf16 arena (float32 weights)
+    for qd, kd in ((bf16, bf16), (f32, f32), (f32, bf16)):
+        for i, (B, C, Hq, Hkv, M, P) in enumerate((
+                (8, 1, 16, 16, 24, 512), (8, 16, 16, 16, 24, 512),
+                (8, 16, 32, 8, 20, 256), (8, 16, 64, 8, 20, 256),
+                (5, 16, 16, 16, 7, 64))):
+            case = attention_case(B, C, Hq, Hkv, 128, 16, P, M, kd,
+                                  seed=500 + i)
+            kn, vn, ok = append_inputs(case, seed=i)
+            q, kp, vp, bt, ln, cl = case
+            err = fused_check(q.to(qd), kp, vp, kn, vn, bt, ln, cl, ok,
+                              f"fused case {i} {qd} q, {kd} arena")
+            worst = max(worst, err) if qd == bf16 else worst
+            n_cases += 1
+    for S in (1, 2, 4, 8):
+        for C, Hq, Hkv in ((1, 16, 16), (16, 16, 16), (16, 32, 8),
+                           (16, 64, 8)):
+            arrays = [torch.as_tensor(a, device="cuda") for a in
+                      append_edge_case(S, 16, C, Hq, Hkv, 128,
+                                       seed=600 + 10 * S + C + Hq)]
+            for dtype in (bf16, f32):
+                case = [a.to(dtype) for a in arrays[:5]] + arrays[5:]
+                fused_check(*case, f"fused split edge S={S} C={C} Hq={Hq} "
+                            f"Hkv={Hkv} {dtype}", S=S)
+                n_cases += 1
+    long_lens = np.random.default_rng(9).integers(3072, 4097, 8)
+    case = attention_case(8, 1, 16, 16, 128, 16, 2048, 512, bf16, seed=9,
+                          lens=long_lens)
+    case[5].fill_(1)
+    kn, vn, ok = append_inputs(case, seed=9)
+    fused_check(*case[:3], kn, vn, *case[3:], ok, "fused long rows")
+    n_cases += 1
+    log(f"paged_attention_append: {n_cases} cases (kernel 1's sweep, GQA "
+        f"with two query groups, float32 q over a bf16 arena, split edge "
+        f"cases at S in 1, 2, 4, 8, long rows; denied rows, -1 pages, page "
+        f"ids past the arena) bitwise equal to kv_append_cuda + "
+        f"paged_attention_cuda in arena and output, arena bit-exact against "
+        f"the plain version; worst bf16 output err {worst:.3g} (tol 2e-2)")
+
+    # -- timed at the serving path's shapes (kernel 1's cases, one new
+    # token per row at C=1 and a 16-token chunk at C=16, every row live)
+    rows = {}
+    for C in (1, 16):
+        case = attention_case(8, C, 16, 16, 128, 16, 512, 512, bf16, seed=7,
+                              lens=lens)
+        case[5].fill_(C)
+        q, kp, vp, bt, ln, cl = case
+        kn, vn, ok = append_inputs(case, seed=7, deny=None)
+        err = fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok,
+                          f"fused C={C} timed case")
+        old = ln - cl
+        B, Hkv, D = 8, 16, 128
+        byts, ops = attention_work(q, kp, bt, ln, cl)
+        # the append's reads are kernel 1's reads of those positions; its
+        # writes and write_ok come on top
+        byts += 2 * kn.numel() * kn.element_size() + B
+        b_ms, by = bound_ms(byts, ops, "bfloat16")
+        page = kp.shape[1]
+        pos = old.long()[:, None] + torch.arange(C, device="cuda")[None]
+        pidx = bt.long().gather(1, pos // page)
+        sidx = pos % page
+        yard = sdpa_yardstick(q, kp, vp, bt, ln, cl)
+
+        def library():
+            kp.index_put_((pidx, sidx), kn)
+            vp.index_put_((pidx, sidx), vn)
+            return yard()
+
+        def mine():
+            paged_attention_append_cuda(q, kp, vp, kn, vn, bt, ln, cl, ok)
+
+        def pair():
+            kv_append_cuda(kp, vp, kn, vn, bt, old, cl, ok)
+            paged_attention_cuda(q, kp, vp, bt, ln, cl)
+        rows[C] = dict(
+            max_abs_err=err, ms=time_ms(mine),
+            device_ms=device_ms(mine, "paged_attention_kernel"),
+            plain_ms=time_ms(lambda: paged_attention_append_plain(
+                q, kp, vp, kn, vn, bt, ln, cl, ok), iters=5),
+            bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
+            library_device_ms=device_ms(library),
+            pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
+        rows[C]["bound_share"] = b_ms / rows[C]["device_ms"]
+        log(f"paged_attention_append C={C}: " + json.dumps(rows[C]))
+    results["paged_attention_append"] = dict(
+        name="paged_attention_append", route="cuda", source=PA_SRC,
+        replaces=KA_TPU, **rows[1])
+    results["paged_attention_append_c16"] = rows[16]
+
 
 def sharded_kernel(results, lens):
     """Kernel 3: kernel 1 launched once per shard on the shard's KV-head
@@ -456,7 +638,8 @@ def sharded_kernel(results, lens):
     import torch
 
     from repro_torch.kernels.paged_attention import (
-        paged_attention_cuda, paged_attention_plain, paged_attention_sharded,
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded,
         paged_attention_sharded_plain)
     from repro_torch.launch.mesh import make_serving_mesh
 
@@ -483,20 +666,41 @@ def sharded_kernel(results, lens):
         torch.cuda.synchronize()
         return (got.float() - want.float()).abs().max().item()
 
+    def run_append(case, seed):
+        """The fused append per shard against one fused launch over the
+        whole arena: every head's output and arena slab bit for bit."""
+        q, kp, vp, bt, ln, cl = case
+        kn, vn, ok = append_inputs(case, seed)
+        full = [kp.clone(), vp.clone()]
+        want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln, cl, ok)
+        ks, vs = split(kp), split(vp)
+        outs = paged_attention_sharded(split(q), ks, vs, bt, ln, cl, mesh=mesh,
+                                       n_kv_heads=kp.shape[2],
+                                       append=(split(kn), split(vn), ok))
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(outs, dim=2), want)
+              and torch.equal(torch.cat(ks, dim=2), full[0])
+              and torch.equal(torch.cat(vs, dim=2), full[1]),
+              f"{q.dtype}: per-shard fused launches differ from the full "
+              f"fused launch")
+
     sweep = [(8, C, 16, 16, 128, 16, 512, 512, torch.bfloat16, lens)
              for C in (1, 16)]
     sweep += [(8, 16, 16, 16, 128, 16, 512, 512, torch.float32, lens),
               (8, 1, 16, 16, 128, 16, 512, 512, torch.float32, lens),
               (8, 16, 32, 8, 128, 16, 256, 20, torch.bfloat16, None)]
     for i, (B, C, Hq, Hkv, D, page, P, M, dtype, ln_) in enumerate(sweep):
-        err = run(*attention_case(B, C, Hq, Hkv, D, page, P, M, dtype,
-                                  seed=300 + i, lens=ln_))
+        case = attention_case(B, C, Hq, Hkv, D, page, P, M, dtype,
+                              seed=300 + i, lens=ln_)
+        err = run(*case)
         check(math.isfinite(err) and err <= tol[dtype],
               f"paged_attention_sharded case {i}: max err {err}")
+        run_append(case, seed=300 + i)
     log(f"paged_attention_sharded: {len(sweep)} cases over {TP} shards match "
         f"the plain version over the joined arena (bf16 tol 2e-2, f32 tol "
         f"1e-4) and the full-arena launch bit for bit (bf16 and f32), {TP} "
-        f"launches per call")
+        f"launches per call; with the fused append, each shard's output and "
+        f"arena slab equal the full fused launch's bit for bit")
 
     rows = {}
     for C in (1, 16):
@@ -638,8 +842,9 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.kv_append import kv_append_cuda
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     paged_attention_sharded)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_sharded)
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
@@ -667,9 +872,12 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     sched = eng.scheduler
-    # every kernel wrapper's count, and what one step must add to it
+    # every kernel wrapper's count, and what one step must add to it: the
+    # fused launch once per layer and shard (counted by kernel 1's wrapper
+    # too, which it launches through), the standalone append never
     counters = {paged_attention_cuda: tp * cfg.n_layers,
-                kv_append_cuda: tp * cfg.n_layers,
+                paged_attention_append_cuda: tp * cfg.n_layers,
+                kv_append_cuda: 0,
                 paged_attention_sharded: (tp if tp > 1 else 0) * cfg.n_layers}
     for fn in counters:
         fn.launches = 0
@@ -721,6 +929,8 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
     if dtype == "bfloat16" and tp == 1:
         results["paged_attention"]["launches"] = paged_attention_cuda.launches
         results["kv_append"]["launches"] = kv_append_cuda.launches
+        results["paged_attention_append"]["launches"] = \
+            paged_attention_append_cuda.launches
     elif dtype == "bfloat16":
         results["paged_attention_sharded"]["launches"] = \
             paged_attention_sharded.launches
@@ -800,8 +1010,12 @@ def profile_phase(name, tp=1, steps=5):
         f"{sum(r[1] for r in rows):.0f} device ops ({100 * busy / wall:.1f}% "
         f"busy)")
     attn = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
-    log(f"profile tp={tp}: kernel 1 {attn:.3f} ms/step, "
-        f"{100 * attn / busy:.1f}% of the device time")
+    n_attn = sum(r[1] for r in rows if "paged_attention_kernel" in r[2])
+    log(f"profile tp={tp}: kernel 1 with the fused append {attn:.3f} "
+        f"ms/step in {n_attn:.0f} launches, {100 * attn / busy:.1f}% of the "
+        f"device time")
+    check(not any("kv_append_kernel" in r[2] for r in rows),
+          f"profile tp={tp}: a standalone kv_append launch in the steady step")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
 
@@ -829,12 +1043,18 @@ def sass_check():
             for op in ("HMMA", "LDGSTS"):
                 funcs[name][op] += f" {op}" in line
     kern = {n: c for n, c in funcs.items() if "paged_attention_kernel" in n}
+    # the fused-append instantiations: kAppend = true, mangled Lb1E
+    n_append = sum("Lb1E" in n or ", true>" in n for n in kern)
+    check(n_append == 15 and len(kern) == 35,
+          f"want 35 paged_attention_kernel instantiations, 15 of them with "
+          f"the append: {len(kern)}, {n_append}")
     mma = [n for n, c in kern.items() if c["HMMA"]]
     # the bf16 x bf16 instantiations: mangled, the bf16 type named for TQ
     # and substituted for T; or demangled
     bf16 = [n for n in kern if "I13__nv_bfloat16S" in n
             or "__nv_bfloat16, __nv_bfloat16" in n]
-    log(f"sass: {len(kern)} paged_attention_kernel instantiations; HMMA in "
+    log(f"sass: {len(kern)} paged_attention_kernel instantiations "
+        f"({n_append} with the append); HMMA in "
         f"{len(mma)} ({sum(kern[n]['HMMA'] for n in mma)} instructions), "
         f"LDGSTS in {sum(1 for c in kern.values() if c['LDGSTS'])}")
     check(sorted(mma) == sorted(bf16) and mma,
@@ -914,7 +1134,8 @@ def main() -> int:
         profile_phase(name, tp=TP)
 
     kernels = [results["paged_attention"], results["kv_append"],
-               results["paged_attention_sharded"]]
+               results["paged_attention_sharded"],
+               results["paged_attention_append"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms")

@@ -26,7 +26,12 @@ Module map (port -> JAX counterpart):
 ``kernels/paged_attention.py`` +        ``repro/kernels/paged_attention.py::
 ``kernels/csrc/paged_attention.cu``     paged_attention_pallas``
 ``kernels/kv_append.py`` +              ``repro/kernels/kv_append.py::
-``kernels/csrc/kv_append.cu``           kv_append_pallas`` (C-token form)
+``kernels/csrc/kv_append.cu``           kv_append_pallas`` (C-token form;
+                                        standalone, off the serving path)
+``paged_attention_append_cuda``         ``kv_append_pallas`` then
+(``kernels/paged_attention.py``,        ``paged_attention_pallas``: on the
+the ``.cu``'s append mode)              serving path kernel 2's work runs
+                                        inside kernel 1's launch
 ``kernels/paged_attention.py``          ``repro/kernels/paged_attention.py::
 (``paged_attention_sharded``)           paged_attention_sharded`` (kernel 1
                                         launched once per shard)

@@ -71,9 +71,43 @@
 //     values: no TF32, no bf16 rounding of q or P.
 //  5. pages_per_compute_block is not used: the stage size KT is fixed by the
 //     query tiling and the shared-memory budget (two blocks per SM).
+//  6. The paged KV append, fused (template flag kAppend; replaces the TPU
+//     kernel src/repro/kernels/kv_append.py::kv_append_pallas on the
+//     serving path, where kernels/csrc/kv_append.cu ran as a launch of its
+//     own before this one in every layer).  With k_new / v_new [B, C, Hkv,
+//     D] in the arena's dtype and write_ok [B] the launch computes exactly
+//     "kv_append, then paged attention": token j of row b sits at position
+//     t = len - cl + j and is written when j < cl, write_ok[b], t / page < M
+//     and its page id is in [0, P).  A standalone append moves 8 rows of
+//     4 KB at the serving shapes, ~40 ns of bytes under a launch of
+//     microseconds, so the only design left is to do it inside a launch
+//     that already runs and already holds the row's length and page ids.
+//     Who writes: the block whose split owns t (the partition of point 1),
+//     query group 0 only, each block its own kv head, so every written
+//     (row, token, head) is written once and a TP shard writes only its
+//     slab.  How: where load_stage meets a position it writes, the cp.async
+//     source is the k_new / v_new row, not the arena; once the stage has
+//     landed, each thread stores the chunks it loaded from the ring to the
+//     arena.  Each new byte is read from device memory once, and the ring
+//     holds the bits the two-launch order would have read back, so the
+//     output is bitwise that of kv_append followed by this kernel.  Where
+//     the append is masked (write_ok false, page -1 or >= P) the arena is
+//     read as it is, as in the two-launch order: a starved copy-on-write
+//     row never writes the page it shares.
+//     The one case where fused and two-launch differ: row B reads, in the
+//     same step, a slot that row A writes.  Live writes go only to private
+//     pages (copy-on-write diverges the first written page; later pages
+//     are fresh grants), so B can only do so through a block-table entry
+//     of a page that was freed and granted again; that row fails OA
+//     validation and its step is discarded.  That is the paper's
+//     optimistic-access premise, and why the launch needs no grid-wide
+//     barrier between the writes and the reads.  Append instantiations
+//     exist where the engine needs them: q and arena of one dtype, and
+//     float32 q over a bf16 arena (float32 weights, the default arena).
 //
 // Launch: 128 threads; dynamic shared memory laid out by Layout below (the
 // host sizes it with the same struct).  Head dims 16, 32, 64, 128, 256.
+// The append adds no shared memory: the stage ring carries the new rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -193,7 +227,7 @@ struct Layout {
   }
 };
 
-template <typename TQ, typename T, int D>
+template <typename TQ, typename T, int D, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
                        const T* __restrict__ k_pages,    // [P, page, Hkv, D]
@@ -205,7 +239,10 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
                        float* __restrict__ part,         // S > 1: partials
                        int* __restrict__ tickets,        // S > 1: zeroed
                        int C, int Hq, int Hkv, int page, int M, int P, int S,
-                       int KT, int rows) {
+                       int KT, int rows,
+                       const T* __restrict__ k_new,      // kAppend: [B, C, Hkv, D]
+                       const T* __restrict__ v_new,      // kAppend: [B, C, Hkv, D]
+                       const uint8_t* __restrict__ write_ok) {  // kAppend: [B]
   constexpr bool kMma =
       sizeof(TQ) == 2 && sizeof(T) == 2;  // both bf16: tensor cores
   using QS = typename std::conditional<kMma, __nv_bfloat16, float>::type;
@@ -248,6 +285,16 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   const int n_stages = t1 > t0 ? (t1 - t0 + KT - 1) / KT : 0;
   const long long page_stride = (long long)page * Hkv * D;
   const float scale = 1.0f / sqrtf((float)D);
+  // append mode: the chunk starts at t_new; wok is the row's write_ok
+  const int t_new = len - cl;
+  bool wok = false;
+  if constexpr (kAppend) wok = write_ok[b] != 0;
+  // does this launch write token t (page id pid, t < t1)?  then its k/v
+  // row is k_new / v_new [b, t - t_new, h], not the arena's
+  auto fresh = [&](int t, int pid) {
+    return kAppend && wok && t >= t_new && t - t_new < C && pid >= 0 &&
+           pid < P;
+  };
 
   // one stage: KT token rows of K and V in 16-byte cp.async chunks, each
   // row loaded by kThreads / KT threads that look its page id up once;
@@ -262,19 +309,54 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
     T* v_dst = k_dst + (size_t)KT * L.ks;
     const int t = t0 + st * KT + my_row;
     int pid = -1;
+    bool mine = false;  // a token this launch appends
     if (t < t1) {
       pid = block_tables[(long long)b * M + t / page];
+      mine = fresh(t, pid);
       if (pid >= P) pid = P - 1;  // the reference's gathers clamp
     }
     const bool live = pid >= 0;
     const long long off =
         live ? (long long)pid * page_stride + ((long long)(t % page) * Hkv + h) * D
              : 0;
+    const T* k_src = k_pages + off;
+    const T* v_src = v_pages + off;
+    if constexpr (kAppend) {
+      if (mine) {
+        const long long n = (((long long)b * C + (t - t_new)) * Hkv + h) * D;
+        k_src = k_new + n;
+        v_src = v_new + n;
+      }
+    }
     for (int c = my_c0; c < CPT; c += tpt) {
-      cp_async16(k_dst + c * EPC, k_pages + off + c * EPC, live ? 16 : 0);
-      cp_async16(v_dst + c * EPC, v_pages + off + c * EPC, live ? 16 : 0);
+      cp_async16(k_dst + c * EPC, k_src + c * EPC, live ? 16 : 0);
+      cp_async16(v_dst + c * EPC, v_src + c * EPC, live ? 16 : 0);
     }
     if (my_c0 == 0) ok_s[buf * KT + my_row] = live;
+  };
+
+  // append mode, once stage st has landed: the chunks this thread loaded
+  // of a token the launch appends go from the ring to the arena (its own
+  // cp.async writes are visible to it after the wait; the ring slot is
+  // refilled only after the next __syncthreads).  Query group 0 writes.
+  auto store_stage = [&](int st) {
+    const int t = t0 + st * KT + my_row;
+    if (t >= t1 || qg != 0) return;
+    const int pid = block_tables[(long long)b * M + t / page];
+    if (!fresh(t, pid)) return;
+    const T* k_src =
+        ring + (size_t)(st % kStages) * 2 * KT * L.ks + (size_t)my_row * L.ks;
+    const T* v_src = k_src + (size_t)KT * L.ks;
+    const long long off =
+        (long long)pid * page_stride + ((long long)(t % page) * Hkv + h) * D;
+    T* k_dst = const_cast<T*>(k_pages) + off;  // written only here
+    T* v_dst = const_cast<T*>(v_pages) + off;
+    for (int c = my_c0; c < CPT; c += tpt) {
+      *reinterpret_cast<uint4*>(k_dst + c * EPC) =
+          *reinterpret_cast<const uint4*>(k_src + c * EPC);
+      *reinterpret_cast<uint4*>(v_dst + c * EPC) =
+          *reinterpret_cast<const uint4*>(v_src + c * EPC);
+    }
   };
 
   // stage the block's query rows (padding rows are zeros and see nothing):
@@ -333,6 +415,7 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   }
   for (int st = 0; st < n_stages; ++st) {
     cp_async_wait<kStages - 2>();
+    if constexpr (kAppend) store_stage(st);
     __syncthreads();
     if (st + kStages - 1 < n_stages) load_stage(st + kStages - 1);
     cp_async_commit();
@@ -592,11 +675,12 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <typename TQ, typename T, int D>
+template <typename TQ, typename T, int D, bool kAppend>
 int launch(const void* q, const void* k, const void* v, const void* bt,
            const void* lengths, const void* chunk_lens, void* out, void* part,
-           void* tickets, int B, int C, int Hq, int Hkv, int page, int M,
-           int P, int S, cudaStream_t stream) {
+           void* tickets, const void* k_new, const void* v_new,
+           const void* write_ok, int B, int C, int Hq, int Hkv, int page,
+           int M, int P, int S, cudaStream_t stream) {
   constexpr bool kMma = sizeof(TQ) == 2 && sizeof(T) == 2;
   const int q_size = kMma ? 2 : 4;
   const int NQ = C * (Hq / Hkv);
@@ -619,30 +703,34 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
   if (bytes > (size_t)cap[dev]) return (int)cudaErrorInvalidValue;
   if ((int)bytes > set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<TQ, T, D>,
+        paged_attention_kernel<TQ, T, D, kAppend>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     set[dev] = (int)bytes;
   }
   const dim3 grid(S, Hkv * NQG, B);
-  paged_attention_kernel<TQ, T, D><<<grid, kThreads, bytes, stream>>>(
+  paged_attention_kernel<TQ, T, D, kAppend><<<grid, kThreads, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(bt),
       static_cast<const int*>(lengths), static_cast<const int*>(chunk_lens),
       static_cast<TQ*>(out), static_cast<float*>(part),
-      static_cast<int*>(tickets), C, Hq, Hkv, page, M, P, S, KT, rows);
+      static_cast<int*>(tickets), C, Hq, Hkv, page, M, P, S, KT, rows,
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+      static_cast<const uint8_t*>(write_ok));
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename T>
+template <typename TQ, typename T, bool kAppend>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* bt, const void* lengths, const void* chunk_lens,
-             void* out, void* part, void* tickets, int B, int C, int Hq,
+             void* out, void* part, void* tickets, const void* k_new,
+             const void* v_new, const void* write_ok, int B, int C, int Hq,
              int Hkv, int page, int M, int P, int S, cudaStream_t s) {
 #define PA_D(DD)                                                              \
   if (D == DD)                                                                \
-  return launch<TQ, T, DD>(q, k, v, bt, lengths, chunk_lens, out, part,       \
-                           tickets, B, C, Hq, Hkv, page, M, P, S, s)
+  return launch<TQ, T, DD, kAppend>(q, k, v, bt, lengths, chunk_lens, out,    \
+                                    part, tickets, k_new, v_new, write_ok, B, \
+                                    C, Hq, Hkv, page, M, P, S, s)
   PA_D(16);
   PA_D(32);
   PA_D(64);
@@ -658,13 +746,19 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 // S: the split count (1..8).
 // part: float32 scratch of B * Hkv * S * C * (Hq / Hkv) * (D + 2) values and
 // tickets: zeroed int32 of B * Hkv * ceil(C * (Hq / Hkv) / 64), both unused
-// (may be null) when S = 1.  Returns cudaGetLastError() after the launch
-// (0 = launched), or a CUDA error code for a refused configuration.
+// (may be null) when S = 1.
+// k_new, v_new ([B, C, Hkv, D], the arena's dtype) and write_ok ([B] bool):
+// the fused append (point 6), all three or none; null selects the kernel
+// without it.  Built for q_dtype == kv_dtype and for a float32 q over a
+// bf16 arena.  Returns cudaGetLastError() after the launch (0 = launched),
+// or a CUDA error code for a refused configuration.
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* bt,
                                       const void* lengths,
                                       const void* chunk_lens, void* out,
-                                      void* part, void* tickets, int B, int C,
+                                      void* part, void* tickets,
+                                      const void* k_new, const void* v_new,
+                                      const void* write_ok, int B, int C,
                                       int Hq, int Hkv, int D, int page, int M,
                                       int P, int S, int q_dtype, int kv_dtype,
                                       void* stream) {
@@ -672,14 +766,28 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
   if (S < 1 || S > kMaxSplits ||
       (S > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const bool append = k_new != nullptr;
+  if (append != (v_new != nullptr) || append != (write_ok != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_LAUNCH(TQ, TKV)                                                    \
-  return launch_d<TQ, TKV>(D, q, k, v, bt, lengths, chunk_lens, out, part,    \
-                           tickets, B, C, Hq, Hkv, page, M, P, S, s)
-  if (q_dtype == 0 && kv_dtype == 0) PA_LAUNCH(float, float);
-  if (q_dtype == 0 && kv_dtype == 1) PA_LAUNCH(float, __nv_bfloat16);
-  if (q_dtype == 1 && kv_dtype == 0) PA_LAUNCH(__nv_bfloat16, float);
-  if (q_dtype == 1 && kv_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#define PA_LAUNCH(TQ, TKV, A)                                                 \
+  return launch_d<TQ, TKV, A>(D, q, k, v, bt, lengths, chunk_lens, out, part, \
+                              tickets, k_new, v_new, write_ok, B, C, Hq, Hkv, \
+                              page, M, P, S, s)
+  using bf16 = __nv_bfloat16;
+  if (q_dtype == 0 && kv_dtype == 0) {
+    if (append) PA_LAUNCH(float, float, true);
+    PA_LAUNCH(float, float, false);
+  }
+  if (q_dtype == 0 && kv_dtype == 1) {
+    if (append) PA_LAUNCH(float, bf16, true);
+    PA_LAUNCH(float, bf16, false);
+  }
+  if (q_dtype == 1 && kv_dtype == 0 && !append) PA_LAUNCH(bf16, float, false);
+  if (q_dtype == 1 && kv_dtype == 1) {
+    if (append) PA_LAUNCH(bf16, bf16, true);
+    PA_LAUNCH(bf16, bf16, false);
+  }
 #undef PA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 CUDA tensors go to the hand-written kernels (``paged_attention.py``,
 ``kv_append.py``), CPU tensors to their plain PyTorch versions.  No flag
-sends a CUDA tensor to a plain version: the JAX package's ``impl`` knob
-("ref" / "interpret" / "pallas") has no counterpart here.
+sends a CUDA tensor to a plain version, or the fused append to two
+launches: the JAX package's ``impl`` knob ("ref" / "interpret" /
+"pallas") has no counterpart here.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from .kv_append import kv_append_cuda, kv_append_plain
-from .paged_attention import (paged_attention_cuda, paged_attention_plain,
+from .paged_attention import (paged_attention_append_cuda,
+                              paged_attention_append_plain,
+                              paged_attention_cuda, paged_attention_plain,
                               paged_attention_sharded,
                               paged_attention_sharded_plain)
 from .ref import paged_attention_ref
@@ -24,7 +27,7 @@ def _one(x):
 
 def paged_attention(q, kv, block_tables, lengths, *,
                     pages_per_compute_block: int = 1, chunk_lens=None,
-                    mesh=None):
+                    mesh=None, append=None):
     """Decode or chunked-prefill attention over the paged pool.
 
     q [B, Hq, D] (decode) or [B, C, Hq, D] (chunk); kv {'k','v': [P, page,
@@ -46,10 +49,22 @@ def paged_attention(q, kv, block_tables, lengths, *,
     as the reference's interpret-mode sharded kernel does); a mesh of one
     shard is the single-device path, as the reference routes through its
     sharded kernel only when the 'model' axis is larger than 1.
+
+    ``append`` = (k_new, v_new, write_ok) first writes the chunk's new K/V
+    [B, C, Hkv, D] (per-shard slabs under ``mesh``; the arena's dtype) into
+    the arena, in place, at positions ``lengths - chunk_lens`` onward
+    (masks: ``kernels/kv_append.py``; ``write_ok`` [B] bool masks a whole
+    row), then attends: the chunk form only.  On CUDA tensors that is ONE
+    launch per shard (``paged_attention_append_cuda``); on CPU tensors
+    ``kv_append_plain`` and then the attention above, the serving step's
+    sequence before the fusion.
     """
     qs, kvs = (q, kv) if mesh is not None else ([q], [kv])
     squeeze = qs[0].dim() == 3
     cuda = qs[0].is_cuda
+    if append is not None and squeeze:
+        raise ValueError("paged_attention: append needs the chunk form, "
+                         "q [B, C, Hq, D]")
     if squeeze and not cuda and (mesh is None or mesh.tp == 1):
         out = paged_attention_ref(qs[0], kvs[0]["k"], kvs[0]["v"],
                                   _one(block_tables), _one(lengths))
@@ -65,15 +80,22 @@ def paged_attention(q, kv, block_tables, lengths, *,
     ks = [x["k"] for x in kvs]
     vs = [x["v"] for x in kvs]
     if mesh is None or mesh.tp == 1:
-        args = (q4[0], ks[0], vs[0], _one(block_tables), _one(lengths),
-                _one(chunk_lens))
-        outs = [paged_attention_cuda(*args, pages_per_compute_block) if cuda
-                else paged_attention_plain(*args)]
+        bt, ln, cl = _one(block_tables), _one(lengths), _one(chunk_lens)
+        if append is None:
+            args = (q4[0], ks[0], vs[0], bt, ln, cl)
+            outs = [paged_attention_cuda(*args, pages_per_compute_block)
+                    if cuda else paged_attention_plain(*args)]
+        else:
+            kn, vn, ok = (_one(x) for x in append)
+            args = (q4[0], ks[0], vs[0], kn, vn, bt, ln, cl, ok)
+            outs = [paged_attention_append_cuda(*args, pages_per_compute_block)
+                    if cuda else paged_attention_append_plain(*args)]
     else:
         fn = paged_attention_sharded if cuda else paged_attention_sharded_plain
         outs = fn(q4, ks, vs, block_tables, lengths, chunk_lens, mesh=mesh,
                   n_kv_heads=sum(k.shape[2] for k in ks),
-                  pages_per_compute_block=pages_per_compute_block)
+                  pages_per_compute_block=pages_per_compute_block,
+                  append=append)
     outs = [o[:, 0] for o in outs] if squeeze else outs
     return outs[0] if mesh is None else outs
 

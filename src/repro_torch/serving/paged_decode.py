@@ -19,19 +19,23 @@ shard (``sharding/rules.py``).  The pool, the grant, COW planning, token
 routing, selection and OA validation run once, on the lead device — the
 reference replicates them and every shard computes the same values, so one
 copy is the same single logical pool.  Per layer each shard projects its
-q/k/v heads, appends to its own slab, attends on its heads (the sharded
-kernel) and multiplies by its rows of ``wo``; the partial outputs are summed
-into the residual on the lead device (the reference's ``psum``), and the
-MLP does the same with its ``w_gate``/``w_up`` columns and ``w_down`` rows.
+q/k/v heads, appends to its own slab and attends on its heads (one launch
+of the sharded kernel per shard, the append fused in), and multiplies by
+its rows of ``wo``; the partial outputs are summed into the residual on
+the lead device (the reference's ``psum``), and the MLP does the same with
+its ``w_gate``/``w_up`` columns and ``w_down`` rows.
 
 Where the JAX step donates its state, this one updates it IN PLACE: the KV
-arena (the append kernel and the COW copy write into it), the pool's
-tensors, the block tables, the snapshots, ``lengths`` and ``last_tok``
-are written through and also returned.  On CUDA tensors the KV append and
-attention run the hand-written kernels (``kernels/ops.py``); on CPU
-tensors their plain PyTorch versions.  The JAX step's ``lax.scan`` over
-layers is a Python loop over ``model.blocks``; its traced ``do_validate``
-and ``chunk_budget`` are plain host values the scheduler already plans.
+arena (the attention launch's fused append and the COW copy write into
+it), the pool's tensors, the block tables, the snapshots, ``lengths`` and
+``last_tok`` are written through and also returned.  On CUDA tensors each
+layer's KV append and attention are ONE launch of the hand-written kernel
+per shard (``kernels/ops.py``, ``paged_attention(..., append=...)``): the
+new K/V are written to the arena and read once, on the step's stream; on
+CPU tensors the plain append, then plain attention.  The JAX step's
+``lax.scan`` over layers is a Python loop over ``model.blocks``; its
+traced ``do_validate`` and ``chunk_budget`` are plain host values the
+scheduler already plans.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 
 from repro_torch.core import pagepool as pp
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import kv_append, paged_attention, speculative_accept
+from repro_torch.kernels.ops import paged_attention, speculative_accept
 from repro_torch.models.layers import apply_norm, attention_qkv, mlp_apply
 from repro_torch.models.transformer import embed_tokens, unembed
 from repro_torch.launch.mesh import ServingMesh
@@ -136,9 +140,10 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     j gets the causal horizon of its position.  ``write_ok`` [B] bool masks
     all of a row's appends (a starved COW row must not write the shared page
     it failed to diverge from).  Each layer writes its K/V into the arena in
-    place, then attends.  With ``mesh``, ``model`` and ``kv`` are the
-    per-shard models and slabs (module docstring).  Returns (x [B, C,
-    d_model] final-normed, kv)."""
+    place and attends over them in one ``paged_attention(..., append=...)``
+    call (one kernel launch per shard on CUDA).  With ``mesh``, ``model``
+    and ``kv`` are the per-shard models and slabs (module docstring).
+    Returns (x [B, C, d_model] final-normed, kv)."""
     if cfg.family != "dense" or cfg.moe:
         raise NotImplementedError("paged decode: dense decoder LMs only")
     B, C = tokens.shape
@@ -154,26 +159,26 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     total_len = (lengths + n_new).to(torch.int32)
     if write_ok is None:
         write_ok = torch.ones((B,), dtype=torch.bool, device=dev)
-    poss, bts, lens, nns, oks, tots = map(
-        mesh.replicate,
-        (positions, block_tables, lengths, n_new, write_ok, total_len))
+    poss, bts, nns, oks, tots = map(
+        mesh.replicate, (positions, block_tables, n_new, write_ok, total_len))
     for layer in range(cfg.n_layers):
         blks = [m.blocks[layer] for m in shards]
         h = apply_norm(cfg, x, blks[0].ln1)
-        qs, slabs = [], []
+        qs, kns, vns, slabs = [], [], [], []
         for s, blk in enumerate(blks):
             kl, vl = kvs[s]["k"][layer], kvs[s]["v"][layer]  # [P,page,Hkv,D]
             q, k, v = attention_qkv(lcfg, h.to(devs[s], non_blocking=True),
                                     blk.attn, poss[s])
-            # the write precedes attention in every layer, on the same stream
-            kv_append(kl, vl, k.to(kl.dtype).contiguous(),
-                      v.to(vl.dtype).contiguous(), bts[s], lens[s], nns[s],
-                      oks[s])
             qs.append(q)
+            kns.append(k.to(kl.dtype).contiguous())
+            vns.append(v.to(vl.dtype).contiguous())
             slabs.append({"k": kl, "v": vl})
+        # the chunk's K/V land at positions lengths .. total_len - 1, then
+        # are attended over: one call (per shard: one launch, one stream)
         atts = paged_attention(
             qs, slabs, bts, tots, mesh=mesh, chunk_lens=nns,
-            pages_per_compute_block=pages_per_compute_block)
+            pages_per_compute_block=pages_per_compute_block,
+            append=(kns, vns, oks))
         x = x + _reduce([a.reshape(B, C, -1) @ blk.attn["wo"]
                          for a, blk in zip(atts, blks)], dev)
         h2 = apply_norm(cfg, x, blks[0].ln2)

@@ -4,7 +4,8 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips with that
 reason elsewhere; the file imports no jax, so it runs on a machine that
 has only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerance: float32 1e-4 abs (summation order); bfloat16 2e-2 abs (outputs
-may round to a neighbouring bf16 value); the KV append is bit-exact.
+may round to a neighbouring bf16 value); the KV append is bit-exact, and
+the fused append + attention launch is bitwise the two-launch pair.
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.kv_append import kv_append_plain
-from split_cases import split_edge_case
+from split_cases import append_edge_case, split_edge_case
 
 torch.set_num_threads(1)
 
@@ -119,6 +120,66 @@ def test_cuda_kv_append_is_bit_exact(cuda):
     kv_append_cuda(*a, kn, vn, bt, ln, n_new, ok)
     kv_append_plain(*b, kn, vn, bt, ln, n_new, ok)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("C,Hq,Hkv", [(1, 4, 4), (16, 4, 4), (16, 32, 4)],
+                         ids=["decode", "chunk", "gqa_two_query_groups"])
+@pytest.mark.parametrize("qd,kd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16")])
+def test_cuda_fused_append_is_the_two_launch_pair(cuda, S, C, Hq, Hkv, qd,
+                                                  kd):
+    """One fused launch equals kv_append_cuda + paged_attention_cuda bit for
+    bit, in arena and output, on the split edge cases with denied rows, −1
+    pages and a page id past the arena (``append_edge_case``; at C=16 GQA
+    8:1 has C * G = 128 query slots, two query groups of which one
+    writes); its arena is bit-exact against the plain version."""
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_append_plain,
+        paged_attention_cuda)
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(S, 16, C, Hq, Hkv, 64, seed=S * 3 + C + Hq)]
+    q = q.to(getattr(torch, qd))
+    k, v, kn, vn = (a.to(getattr(torch, kd)) for a in (k, v, kn, vn))
+    pair, mine, plain = ([k.clone(), v.clone()] for _ in range(3))
+    kv_append_cuda(*pair, kn, vn, bt, ln - cl, cl, ok)
+    want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S)
+    got = paged_attention_append_cuda(q, *mine, kn, vn, bt, ln, cl, ok,
+                                      _splits=S)
+    ref = paged_attention_append_plain(q, *plain, kn, vn, bt, ln, cl, ok)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(mine, pair))
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    assert not torch.equal(mine[0], k)
+    tol = 2e-2 if "bfloat16" in (qd, kd) else 1e-4
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_append_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda)
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(1, 16, 4, 4, 4, 64, seed=0)]
+    k, v = k.bfloat16(), v.bfloat16()
+    good = (kn.bfloat16(), vn.bfloat16())
+    args = lambda kn, vn: (q.bfloat16(), k, v, kn, vn, bt, ln, cl, ok)
+    with pytest.raises(ValueError, match="arena's dtype"):
+        paged_attention_append_cuda(*args(kn, good[1]))  # float32 k_new
+    strided = torch.empty(kn.shape[:-1] + (128,), dtype=torch.bfloat16,
+                          device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention_append_cuda(*args(strided, good[1]))
+    with pytest.raises(ValueError, match="CUDA tensor|different devices"):
+        paged_attention_append_cuda(*args(good[0].cpu(), good[1]))
+    with pytest.raises(ValueError, match="bool"):
+        paged_attention_append_cuda(*args(*good)[:-1], ok.int())
+    paged_attention_append_cuda(*args(*good))  # and the good call launches
 
 
 @pytest.mark.cuda

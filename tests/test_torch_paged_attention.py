@@ -7,7 +7,9 @@ abs/rel in float32 (summation order only); the KV append is bit-exact.
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py``; the CUDA attention kernel's split-and-merge
 algorithm is emulated here in plain torch (``_split_emulation``) and held
-to the same oracles.
+to the same oracles.  The fused append (``paged_attention(...,
+append=...)``) is held to the JAX serving step's scatter followed by the
+Pallas kernel: the arena exactly, the output to 1e-5 in float32.
 """
 
 import functools
@@ -26,7 +28,7 @@ from repro.kernels.ref import (paged_attention_chunked_ref,
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_append import kv_append_plain
 from repro_torch.kernels.ref import speculative_accept_ref
-from split_cases import split_edge_case
+from split_cases import append_case, split_edge_case
 
 torch.set_num_threads(1)
 
@@ -163,6 +165,57 @@ def test_kv_append_plain_matches_chunk_core_scatter():
                     torch.from_numpy(n_new), torch.from_numpy(ok))
     for w, t in zip(want, arena):
         np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+
+
+def _jax_scatter(arena, new, bt, old, n_new, ok):
+    """The JAX serving step's masked KV write (``repro.serving.paged_decode
+    ._chunk_core``), written out: dropped where j >= n_new, the page is −1
+    or past the arena, the page slot is past M, or write_ok is False."""
+    P, page = arena.shape[:2]
+    B, C = new.shape[:2]
+    M = bt.shape[1]
+    pos = old[:, None] + np.arange(C)[None]
+    pos_page = pos // page
+    pages = np.take_along_axis(bt, np.minimum(pos_page, M - 1), axis=1)
+    wvalid = (np.arange(C)[None] < n_new[:, None]) & (pages >= 0) \
+        & (pos_page < M) & ok[:, None]
+    pidx = jnp.asarray(np.where(wvalid, pages, P))
+    return jnp.asarray(arena).at[pidx, jnp.asarray(pos % page)].set(
+        jnp.asarray(new), mode="drop")
+
+
+@pytest.mark.parametrize("C", [1, 4])
+def test_fused_append_matches_jax_append_then_pallas(C):
+    """``paged_attention(..., append=...)`` on the CPU against the JAX
+    step's scatter followed by ``paged_attention_pallas`` in interpret mode
+    (and the chunked oracle): a straddling chunk, a denied row finishing
+    mid-chunk, a page id past the arena and a −1 page (``append_case``)."""
+    q, k, v, kn, vn, bt, ln, cl, ok = append_case(C, 4, 2, 16, seed=C)
+    old = ln - cl
+    jk, jv = (_jax_scatter(a, n, bt, old, cl, ok) for a, n in ((k, kn),
+                                                               (v, vn)))
+    J = jnp.asarray
+    pallas = paged_attention_pallas(
+        J(q), jk, jv, J(bt), J(ln), page_size=4, n_kv_heads=2,
+        interpret=True, chunk_lens=J(cl))
+    ref = paged_attention_chunked_ref(J(q), jk, jv, J(bt), J(ln), J(cl))
+    T = torch.from_numpy
+    arena = {"k": T(k.copy()), "v": T(v.copy())}
+    out = ops.paged_attention(T(q), arena, T(bt), T(ln), chunk_lens=T(cl),
+                              append=(T(kn), T(vn), T(ok))).numpy()
+    np.testing.assert_array_equal(arena["k"].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(arena["v"].numpy(), np.asarray(jv))
+    assert not np.array_equal(arena["k"].numpy(), k)  # row 0 wrote
+    np.testing.assert_allclose(out, np.asarray(pallas), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_fused_append_rejects_the_decode_form():
+    q, k, v, kn, vn, bt, ln, cl, ok = (torch.from_numpy(a) for a in
+                                       append_case(1, 4, 2, 16, seed=0))
+    with pytest.raises(ValueError, match="chunk form"):
+        ops.paged_attention(q[:, 0], {"k": k, "v": v}, bt, ln,
+                            append=(kn, vn, ok))
 
 
 def test_speculative_accept_matches_reference():

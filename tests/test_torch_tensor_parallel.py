@@ -8,7 +8,10 @@ test process must keep seeing one jax device); it writes its results to an
 - the sharded paged-attention kernel (plain version per shard on the CPU)
   against the reference's interpret-mode ``paged_attention_sharded``, in
   the decode and chunk forms, GQA 8:4 over 2 shards and 16:4 over 4, to
-  1e-5 in float32;
+  1e-5 in float32; and with the fused append (each shard appends to its own
+  slab, then attends) against the reference step's scatter followed by its
+  sharded kernel, GQA 8:4 over 2 shards: the joined arena exactly, the
+  output to 1e-5;
 - the port's TP=2 engine against the reference's TP=2 engine on the
   reference's own TP parity workload (chunked prefill + speculation +
   prefix sharing, in two waves): tokens, lengths, block tables and the OA
@@ -46,6 +49,7 @@ from repro_torch.kernels.paged_attention import paged_attention_sharded_plain
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import init_decoder_lm
 from repro_torch.serving import PagedServingEngine
+from split_cases import append_case
 
 torch.set_num_threads(1)
 
@@ -59,6 +63,7 @@ WAVE2 = [[5, 7, 11, 13, 99], [5, 7, 11, 13, 98]]
 # sharded-kernel case (tests/test_tensor_parallel.py)
 KERNEL_CASES = [("gqa8_4_tp2", 3, 8, 4, 16, 12, 4, 2),
                 ("gqa16_4_tp4", 3, 16, 4, 16, 12, 4, 4)]
+APPEND_CS = [1, 4]  # chunk widths of the fused-append case (Hq 8, Hkv 4)
 
 _REF_PROG = r"""
 import os, sys
@@ -89,6 +94,26 @@ for name, B, Hq, Hkv, D, P_, page, tp in CASES:
         out[f"{name}_{form}_out"] = np.asarray(got)
         out[f"{name}_{form}_shards"] = len(got.sharding.device_set)
 
+from split_cases import append_case
+for C in APPEND_CS:
+    # the reference step's masked scatter (_chunk_core), then its kernel
+    q, k, v, kn, vn, bt, ln, cl, ok = append_case(C, 8, 4, 16, seed=20 + C)
+    P, page, M = k.shape[0], k.shape[1], bt.shape[1]
+    pos = (ln - cl)[:, None] + np.arange(C)[None]
+    pages = np.take_along_axis(bt, np.minimum(pos // page, M - 1), axis=1)
+    wvalid = (np.arange(C)[None] < cl[:, None]) & (pages >= 0) \
+        & (pos // page < M) & ok[:, None]
+    pidx, slot = jnp.asarray(np.where(wvalid, pages, P)), jnp.asarray(pos % page)
+    kv = {n: jnp.asarray(a).at[pidx, slot].set(jnp.asarray(b), mode="drop")
+          for n, a, b in (("k", k, kn), ("v", v, vn))}
+    got = paged_attention(jnp.asarray(q), kv, jnp.asarray(bt), jnp.asarray(ln),
+                          impl="interpret", mesh=make_serving_mesh(2),
+                          chunk_lens=jnp.asarray(cl))
+    out.update({f"append{C}_k": np.asarray(kv["k"]),
+                f"append{C}_v": np.asarray(kv["v"]),
+                f"append{C}_out": np.asarray(got),
+                f"append{C}_shards": len(got.sharding.device_set)})
+
 CFG = reduced(get_config("olmo-1b"))
 params = jax.tree.map(lambda a: a.astype(jnp.float32),
                       init_decoder_lm(CFG, jax.random.PRNGKey(0)))
@@ -113,8 +138,10 @@ np.savez(sys.argv[1], **out)
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("tp_reference") / "ref.npz"
     prog = (f"CASES = {KERNEL_CASES!r}\nENGINE_KW = {ENGINE_KW!r}\n"
-            f"PROMPTS = {PROMPTS!r}\nWAVE2 = {WAVE2!r}\n" + _REF_PROG)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+            f"PROMPTS = {PROMPTS!r}\nWAVE2 = {WAVE2!r}\n"
+            f"APPEND_CS = {APPEND_CS!r}\n" + _REF_PROG)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO / "tests")]))
     res = subprocess.run([sys.executable, "-c", prog, str(path)],
                          capture_output=True, text=True, env=env, cwd=REPO,
                          timeout=600)
@@ -152,6 +179,27 @@ def test_sharded_kernel_matches_reference(reference, case, form):
     assert len(outs) == tp and all(o.shape == q.shape for o, q in zip(outs, qs))
     got = torch.cat(outs, dim=-2).numpy()
     np.testing.assert_allclose(got, r[f"{form}_out"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("C", APPEND_CS)
+def test_sharded_fused_append_matches_reference(reference, C):
+    """``paged_attention(..., mesh=, append=)`` over 2 CPU shards: each
+    shard writes its own slab of the new K/V, then attends; the joined
+    arena equals the reference's after its step's scatter, exactly, and
+    the output its interpret-mode sharded kernel's to 1e-5."""
+    assert int(reference[f"append{C}_shards"]) == 2
+    q, k, v, kn, vn, bt, ln, cl, ok = append_case(C, 8, 4, 16, seed=20 + C)
+    mesh = make_serving_mesh(2, ["cpu", "cpu"])
+    kvs = [{"k": a, "v": b} for a, b in zip(_slabs(k, 2, 2), _slabs(v, 2, 2))]
+    T = torch.from_numpy
+    outs = paged_attention(_slabs(q, 2, axis=-2), kvs, T(bt), T(ln),
+                           mesh=mesh, chunk_lens=T(cl),
+                           append=(_slabs(kn, 2, 2), _slabs(vn, 2, 2), T(ok)))
+    for n in ("k", "v"):
+        joined = torch.cat([x[n] for x in kvs], dim=2).numpy()
+        np.testing.assert_array_equal(joined, reference[f"append{C}_{n}"])
+    np.testing.assert_allclose(torch.cat(outs, dim=-2).numpy(),
+                               reference[f"append{C}_out"], atol=1e-5, rtol=0)
 
 
 def test_sharded_kernel_rejects_heads_the_mesh_does_not_divide():
