@@ -45,6 +45,32 @@ run with a nonzero exit and no result line.
    TP=1's do (mean abs difference within 1.25x), over the prompt positions
    and, apart, over the generated positions where both still feed the
    model float32's tokens; the tokens TP=2 shares with TP=1 are printed.
+5. Fleet: full-width olmo-1b (the engine phase's configuration, 16
+   requests unless stated) served by ``DataParallelEngine`` with both
+   replicas on this card.  Each path has its launch counts set to 0 just
+   before it and held just after: the fused launch once per layer, shard
+   and engine step, the standalone append never.  (a) bf16, the main path:
+   in ``step()`` mode every step's launches per replica and exactly one
+   read per replica in a steady step (sync debug mode); then threaded
+   ``run()`` (the same tokens) and one engine on the same requests, both
+   timed; the clock mirror per replica.  (b) Failover: a warmed fleet with
+   ``auto_revive`` whose replica 0 is killed mid-decode; in float32 the
+   stitched tokens must equal one engine's, with one failure, one revival
+   and every request of the killed replica migrated; in bf16 the equal
+   tokens are printed.  (c) bf16 under ``ChaosConfig`` (denials, spurious
+   invalidations, delayed frees, unmap-under-reader): in ``step()`` mode
+   one read per replica per steady step; then on 64 pages a replica with
+   a kill, timed against the same fleet fault-free: 0 lost,
+   every fault kind fired, the clock mirror per replica once the frees
+   the chaos layer still defers are applied and the clock ticks of its
+   spontaneous releases added.  (d) float32 2 replicas x
+   ``tensor_parallel=2`` (four shards on this card): tokens equal one
+   TP=2 engine's (those equal to TP=1's are printed), 2 x 16 shard
+   launches per replica step.  (e) A bursty two-class trace
+   at 0.6x the requests/s one engine sustained in (a), replayed open-loop
+   through ``launch/serve.py::_replay_trace``: 0 lost, TTFT percentiles
+   per class.  (f) The CLI's ``main`` at its reduced size: ``--replicas
+   2``, ``--classes --stream``, ``--trace``.
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
 sharded kernel 3 and the fused launch; launches from the bf16 TP=1 run for
@@ -53,7 +79,8 @@ kernel 1 counts its launches with and without the append, kernel 2 is off
 the serving path and counts 0); the last line is
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA.
 ``--profile`` adds a torch.profiler breakdown of steady full-width decode
-steps at TP=1 and at TP=2 after the engine runs.
+steps at TP=1 and at TP=2 after the engine runs, and the device time of
+the fleet's drain beside the fleet phase's wall times.
 """
 
 from __future__ import annotations
@@ -959,6 +986,456 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
             [len(r.prompt) for r in reqs])
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serving fleet
+
+FLEET_KW = dict(num_pages=512, page_size=16, max_batch=8, prefill_chunk=16)
+CHAOS = dict(grant_denial_p=0.1, spurious_invalid_p=0.05, delayed_free_p=0.1,
+             unmap_under_reader_p=0.05)
+ON_CARD = ["cuda:0", "cuda:0"]  # two replicas, or two shards, on this card
+
+
+def kernel_wrappers():
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_sharded)
+    return (paged_attention_cuda, paged_attention_append_cuda,
+            kv_append_cuda, paged_attention_sharded)
+
+
+def want_launches(layers, steps, shards=1):
+    """Each wrapper's launches for ``steps`` engine steps of a model of
+    ``layers`` layers at ``shards`` shards: the fused launch once per
+    layer and shard (kernel 1's wrapper counts it too), kernel 3 once per
+    layer and shard under tensor parallelism, the standalone append
+    never."""
+    n = layers * shards * steps
+    return dict(zip((fn.__name__ for fn in kernel_wrappers()),
+                    (n, n, 0, n if shards > 1 else 0)))
+
+
+def reset_launches():
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
+def read_launches(tag, layers, steps, shards=1):
+    """The counts of the path just driven (set to 0 just before it): each
+    wrapper exactly :func:`want_launches`, the fused launch at least once."""
+    got = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    want = want_launches(layers, steps, shards)
+    check(got == want and steps > 0,
+          f"{tag}: kernel launches {got}, want {want} ({steps} steps)")
+    return got
+
+
+def fleet_steps(fleet, tag, layers, shards=1):
+    """Drive ``fleet`` to a drain in ``step()`` mode, one thread: every
+    fleet step must add :func:`want_launches` for the replicas that
+    stepped, and a steady step (nothing queued, every row decoding and two
+    or more tokens from its end) exactly one device->host transfer per
+    replica at work.  Returns (fleet steps, steady steps)."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    n = steady = 0
+    while not fleet.drained():
+        live = [e for e, a in zip(fleet.replicas, fleet.alive) if a]
+        working = sum(bool(e.scheduler.running) for e in live)
+        is_steady = working and all(
+            not e.scheduler.queue and all(
+                r.committed >= len(r.prompt)
+                and len(r.generated) + 2 < r.max_new_tokens
+                for r in e.scheduler.running) for e in live)
+        steps = [e.stats.steps for e in live]
+        before = {fn: fn.launches for fn in wrappers}
+        if is_steady:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fleet.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            check(len(syncs) == working, f"{tag}: steady fleet step {n} "
+                  f"made {len(syncs)} device->host transfers for {working} "
+                  f"replicas at work: "
+                  f"{[str(w.message)[:80] for w in syncs]}")
+            steady += 1
+        else:
+            fleet.step()
+        stepped = [e.stats.steps - s for e, s in zip(live, steps)]
+        check(set(stepped) <= {0, 1}, f"{tag}: replica steps {stepped}")
+        got = {fn.__name__: fn.launches - before[fn] for fn in wrappers}
+        want = want_launches(layers, sum(stepped), shards)
+        check(got == want, f"{tag} fleet step {n}: kernel launches {got}, "
+              f"want {want}")
+        n += 1
+        check(n < 5000, f"{tag}: the fleet did not drain")
+    return n, steady
+
+
+def mirrors_hold(tag, engines):
+    """The clock mirror per replica.  Under chaos, as in the reference's
+    chaos layer: the frees it still defers are applied first (the default
+    policy's end-of-drain flush does not reach it), and the clock ticks of
+    its spontaneous releases, made behind the KV manager, are added to the
+    mirror."""
+    for i, e in enumerate(engines):
+        alloc = e.kv_manager.allocator
+        ticks = 0
+        if hasattr(alloc, "faults"):
+            alloc.flush()
+            ticks = alloc.unmap_clock_ticks
+        clock = int(e.pool.clock.cpu())
+        check(e.stats.warnings_fired + ticks == clock,
+              f"{tag}: replica {i} clock mirror {e.stats.warnings_fired} + "
+              f"{ticks} spontaneous releases != pool clock {clock}")
+
+
+def timed(fn):
+    """(fn(), its wall seconds, ending when the card is idle)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kill_after(n):
+    """A step hook that raises on replica 0's ``n``-th driver iteration."""
+    calls = [0]
+
+    def hook(_eng):
+        calls[0] += 1
+        if calls[0] == n:
+            raise RuntimeError(f"injected kill at driver iteration {n}")
+    return hook
+
+
+def prefix_equal(run, base):
+    """Tokens of ``run`` equal to ``base``'s before each request's first
+    difference, and their total."""
+    same = sum(next((i for i, (x, y) in enumerate(zip(p, q)) if x != y),
+                    min(len(p), len(q))) for p, q in zip(run, base))
+    return same, sum(map(len, base))
+
+
+def fleet_failover(cfg, params, prompts, tag, kill_at=20, **kw):
+    """A warmed 2-replica fleet with ``auto_revive``: replica 0 is killed at
+    its ``kill_at``-th driver iteration while it serves ``prompts`` (32 new
+    tokens each).  Returns (fleet, requests, requests first routed to
+    replica 0, wall seconds, every engine that served)."""
+    from repro_torch.serving import DataParallelEngine, WatchdogConfig
+
+    fleet = DataParallelEngine(
+        cfg, params, replicas=2, devices=ON_CARD,
+        watchdog=WatchdogConfig(auto_revive=True), **{**FLEET_KW, **kw})
+    warm = [fleet.submit(p[:16], 2) for p in prompts[:2]]
+    fleet.run()  # warm (first steps) before the watchdog times anything
+    check(all(r.state == "finished" for r in warm), f"{tag}: warm-up")
+    s0 = fleet.stats.steps
+    reqs = [fleet.submit(p, 32) for p in prompts]
+    victims = [r for r in reqs if r._engine is fleet.replicas[0]]
+    engines = list(fleet.replicas)
+    fleet.step_hooks[0] = kill_after(kill_at)
+    reset_launches()
+    _, wall = timed(fleet.run)
+    read_launches(tag, cfg.n_layers, fleet.stats.steps - s0)
+    engines.append(fleet.replicas[0])  # the revived replica
+    st = fleet.stats
+    check(all(r.state == "finished" for r in reqs), f"{tag}: a request was "
+          f"lost ({[r.state for r in reqs]})")
+    check(st.replica_failures == 1 and st.replica_revivals == 1,
+          f"{tag}: {st.replica_failures} failures, {st.replica_revivals} "
+          f"revivals, want 1 and 1")
+    check(st.requests_migrated >= len(victims) > 0,
+          f"{tag}: {st.requests_migrated} requests migrated, "
+          f"{len(victims)} were on the killed replica")
+    return fleet, reqs, victims, wall, engines
+
+
+def fleet_phase(name):
+    """Phase 5: full-width olmo-1b served by ``DataParallelEngine`` fleets
+    on this card, then open-loop replay and the serving CLI (module
+    docstring).  Nothing here is caught."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import ChaosConfig
+    from repro_torch.launch.serve import _replay_trace, main as serve_main
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import (DataParallelEngine, PagedServingEngine,
+                                     dump_trace, synthesize_trace)
+
+    cfg = get_config("olmo-1b")
+    L = cfg.n_layers
+    sixteen = fleet_requests(cfg)
+
+    def single(params, tag, **where):
+        """One engine (on this card, or as ``where`` says) serving the 16
+        requests (32 new tokens each), timed."""
+        eng = PagedServingEngine(cfg, params, **(where or {"device": "cuda"}),
+                                 **FLEET_KW)
+        reqs = [eng.submit(p, 32) for p in sixteen]
+        reset_launches()
+        _, wall = timed(eng.run)
+        read_launches(tag, L, eng.stats.steps, eng.tensor_parallel)
+        check(all(r.state == "finished" for r in reqs), f"{tag}: unfinished")
+        mirrors_hold(tag, [eng])
+        return [list(r.generated) for r in reqs], wall, eng.stats.steps
+
+    # -- (a) bf16, the main path: 2 replicas on this card -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_decoder_lm(cfg, seed=0, dtype=torch.bfloat16,
+                             device="cuda")
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **FLEET_KW)
+    check(len({e.params.embed["tok"].data_ptr() for e in fleet.replicas})
+          == 1, "fleet (a): replicas on one card must share the weights")
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    n, steady = fleet_steps(fleet, "fleet (a) step()", L)
+    launches = read_launches("fleet (a) step()", L, fleet.stats.steps)
+    check(steady >= 4, f"fleet (a): only {steady} steady fleet steps")
+    check(all(r.state == "finished" for r in reqs), "fleet (a): unfinished")
+    mirrors_hold("fleet (a) step()", fleet.replicas)
+    step_tokens = [list(r.generated) for r in reqs]
+    log(f"fleet (a) bf16 step(): 2 replicas on one card, 16 requests, {n} "
+        f"fleet steps, {steady} steady with one read per replica each, "
+        f"replica steps {[e.stats.steps for e in fleet.replicas]}, "
+        f"launches {json.dumps(launches)}")
+    base, wall1, steps1 = single(params, "fleet (a) single engine")
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **FLEET_KW)
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    _, wall2 = timed(fleet.run)
+    run_steps = fleet.stats.steps
+    launches = read_launches("fleet (a) run()", L, run_steps)
+    check(all(r.state == "finished" for r in reqs), "fleet (a): unfinished")
+    mirrors_hold("fleet (a) run()", fleet.replicas)
+    check([list(r.generated) for r in reqs] == step_tokens,
+          "fleet (a): threaded run() and step() generate different tokens")
+    # the same drain from one thread in step() mode, timed: what the two
+    # driver threads cost beyond it
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **FLEET_KW)
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+
+    def drain():
+        while not fleet.drained():
+            fleet.step()
+    reset_launches()
+    _, wall3 = timed(drain)
+    read_launches("fleet (a) timed step()", L, fleet.stats.steps)
+    check([list(r.generated) for r in reqs] == step_tokens,
+          "fleet (a): two step() drains generate different tokens")
+    gen = 16 * 32
+    log(f"fleet (a) bf16 run(): 2 driver threads, {run_steps} "
+        f"replica steps, launches {json.dumps(launches)}; generated "
+        f"tokens/s on the same 16 requests: fleet run() {gen / wall2:.1f}, "
+        f"fleet step() from one thread {gen / wall3:.1f}, one engine "
+        f"{gen / wall1:.1f} ({steps1} steps; run() {wall2 / wall1:.3f}x and "
+        f"step() {wall3 / wall1:.3f}x its wall time), on {name}")
+    same, total = prefix_equal(step_tokens, base)
+    log(f"fleet (a): {same} of {total} bf16 fleet tokens equal the single "
+        f"engine's before each request's first difference")
+    _, reqs, victims, wall, _ = fleet_failover(
+        cfg, params, sixteen, "fleet (b) bf16 failover")
+    same, total = prefix_equal([r.output_tokens for r in reqs], base)
+    log(f"fleet (b) bf16 failover: {len(victims)} requests on the killed "
+        f"replica, {same} of {total} stitched tokens equal the single "
+        f"engine's before each request's first difference (not held: bf16 "
+        f"meets near ties)")
+
+    # -- (c) bf16 chaos: step() on the roomy pool, then a kill on 64 pages --
+    fault_engines = []
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               chaos=ChaosConfig(seed=1, **CHAOS), **FLEET_KW)
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    n, steady = fleet_steps(fleet, "fleet (c) chaos step()", L)
+    read_launches("fleet (c) chaos step()", L, fleet.stats.steps)
+    check(steady >= 1, f"fleet (c): only {steady} steady fleet steps")
+    check(all(r.state == "finished" for r in reqs), "fleet (c): unfinished")
+    mirrors_hold("fleet (c) chaos step()", fleet.replicas)
+    fault_engines += fleet.replicas
+    log(f"fleet (c) chaos step(): {n} fleet steps, {steady} steady with one "
+        f"read per replica each, faults "
+        f"{[e.kv_manager.allocator.faults for e in fleet.replicas]}")
+    # 64 pages a replica (1024 tokens for 8 rows of up to 288): ~45
+    # preemptions over the 16 requests, so every fault kind fires; at 96
+    # pages the pool churned only 5-10 times and a kind could fire never
+    tight = dict(num_pages=64)
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **{**FLEET_KW, **tight})
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    _, wall0 = timed(fleet.run)
+    read_launches("fleet (c) fault-free", L, fleet.stats.steps)
+    check(all(r.state == "finished" for r in reqs), "fleet (c): unfinished")
+    pre0 = fleet.stats.preemptions
+    fleet, reqs, victims, wall, engines = fleet_failover(
+        cfg, params, sixteen, "fleet (c) chaos + kill",
+        chaos=ChaosConfig(seed=11, **CHAOS), **tight)
+    mirrors_hold("fleet (c) chaos + kill", fleet.replicas)
+    fault_engines += engines
+    faults = {k: sum(e.kv_manager.allocator.faults[k] for e in fault_engines)
+              for k in fault_engines[0].kv_manager.allocator.faults}
+    check(all(v > 0 for v in faults.values()),
+          f"fleet (c): a fault kind never fired: {faults}")
+    gen = 16 * 32
+    log(f"fleet (c) chaos + kill, 64 pages a replica, 16 requests: 0 lost, "
+        f"faults {json.dumps(faults)}, {fleet.stats.preemptions} "
+        f"preemptions (fault-free {pre0}), {fleet.stats.requests_migrated} "
+        f"migrated; goodput {gen / wall:.1f} tokens/s against "
+        f"{gen / wall0:.1f} fault-free ({wall0 / wall:.3f}x), on {name}")
+
+    # -- (e) open-loop replay of a bursty two-class trace at ~0.6x ----------
+    rate = 0.6 * 16 / wall1
+    events = synthesize_trace(7, duration_s=10.0, rate_rps=rate,
+                              process="bursty",
+                              class_mix={"interactive": 0.7, "batch": 0.3},
+                              prompt_mean=128, prompt_cap=256,
+                              max_new_mean=32, max_new_cap=64)
+    eng = PagedServingEngine(cfg, params, device="cuda", **FLEET_KW)
+    reset_launches()
+    reqs, wall = timed(lambda: _replay_trace(eng, events, cfg.vocab))
+    read_launches("fleet (e) replay", L, eng.stats.steps)
+    lost = sum(r.state not in ("finished", "shed", "rejected") for r in reqs)
+    check(lost == 0 and len(reqs) == len(events),
+          f"fleet (e): {lost} of {len(reqs)} requests lost")
+    mirrors_hold("fleet (e) replay", [eng])
+    log(f"fleet (e) open-loop replay: {len(events)} arrivals in 10 s at "
+        f"{rate:.2f} req/s (0.6x the single engine's {16 / wall1:.2f}), "
+        f"drained in {wall:.1f} s, 0 lost, on {name}")
+    for cls, cs in sorted(eng.stats.class_stats.items()):
+        p = cs.percentiles()
+        log(f"fleet (e) class {cls}: finished {cs.finished}/{cs.submitted}, "
+            f"shed {cs.shed}, rejected {cs.rejected}, TTFT p50 "
+            f"{p['ttft_p50']:.4f} s, p95 {p['ttft_p95']:.4f} s, p99 "
+            f"{p['ttft_p99']:.4f} s")
+    del params, fleet, eng, reqs, victims, engines, fault_engines
+
+    # -- (b) float32 failover, token-exact; (d) the float32 2D fleet --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_decoder_lm(cfg, seed=0, dtype=torch.float32, device="cuda")
+    base32, _, _ = single(params, "fleet (b) float32 single engine")
+    _, reqs, victims, _, _ = fleet_failover(
+        cfg, params, sixteen, "fleet (b) float32 failover")
+    check([r.output_tokens for r in reqs] == base32,
+          f"fleet (b): float32 stitched tokens differ from one engine's "
+          f"({prefix_equal([r.output_tokens for r in reqs], base32)})")
+    check(all(r.migrations == 1 for r in victims),
+          "fleet (b): a request of the killed replica did not migrate")
+    log(f"fleet (b) float32 failover: replica 0 killed at its 20th "
+        f"iteration, {len(victims)} requests migrated and re-prefilled, "
+        f"1 failure, 1 revival, stitched tokens == one engine's "
+        f"({sum(map(len, base32))} tokens)")
+    # the 2D fleet against one TP=2 engine: the fleet layer must change no
+    # token.  TP=2 against TP=1 is the engine phase's check; over these 16
+    # requests float32 TP=2 can meet a near tie against TP=1 (the bf16
+    # arena rounds the two reductions' K/V apart; 508 of 512 tokens equal
+    # on an H100), so agreement with TP=1 is printed here, not held
+    base_tp, _, _ = single(params, "fleet (d) float32 TP=2 engine",
+                           tensor_parallel=2, devices=ON_CARD)
+    fleet = DataParallelEngine(cfg, params, replicas=2, tensor_parallel=2,
+                               devices=ON_CARD * 2, **FLEET_KW)
+    del params  # each replica holds its own shard copies
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    n, steady = fleet_steps(fleet, "fleet (d) 2D", L, shards=2)
+    launches = read_launches("fleet (d) 2D", L, fleet.stats.steps, shards=2)
+    mirrors_hold("fleet (d) 2D", fleet.replicas)
+    tokens = [list(r.generated) for r in reqs]
+    check(tokens == base_tp, f"fleet (d): the 2D fleet's float32 tokens "
+          f"differ from one TP=2 engine's "
+          f"({prefix_equal(tokens, base_tp)})")
+    same, total = prefix_equal(tokens, base32)
+    log(f"fleet (d) float32 2 replicas x TP=2 on one card: tokens == one "
+        f"TP=2 engine's ({total}); {same} of {total} equal TP=1's before "
+        f"each request's first difference; {n} fleet steps ({steady} "
+        f"steady, one read per replica each), 2 x 16 shard launches per "
+        f"replica step, launches {json.dumps(launches)}")
+    del fleet, reqs, victims
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (f) the serving CLI at its reduced size, on the card ---------------
+    reduced_layers = reduced(cfg).n_layers
+    trace = ROOT / "build" / "chip_smoke_trace.jsonl"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    dump_trace(synthesize_trace(3, duration_s=1.0, rate_rps=8.0,
+                                class_mix={"interactive": 0.6, "batch": 0.4},
+                                prompt_mean=5, max_new_mean=3, prompt_cap=8,
+                                max_new_cap=4), str(trace))
+    tiny = ["--num-pages", "24", "--page-size", "4", "--max-batch", "2",
+            "--prompt-len", "6", "--max-new", "3"]
+    for argv in (["--requests", "4", "--replicas", "2"] + tiny,
+                 ["--requests", "3", "--classes", "interactive:0.7,batch:0.3",
+                  "--stream"] + tiny,
+                 ["--num-pages", "32", "--page-size", "4", "--max-batch", "2",
+                  "--trace", str(trace)]):
+        reset_launches()
+        st = serve_main(argv)  # asserts zero lost itself
+        read_launches(f"cli {argv[:2]}", reduced_layers, st.steps)
+    log("cli: --replicas 2, --classes --stream and --trace served on the "
+        "card at the reduced size, 0 lost")
+    return {"one engine": wall1, "fleet run()": wall2, "fleet step()": wall3}
+
+
+def fleet_requests(cfg):
+    """The fleet phase's 16 prompts of 64-256 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, cfg.vocab, int(n)).tolist()
+            for n in rng.integers(64, 257, 16)]
+
+
+def profile_fleet(name, walls):
+    """``--profile``: the device time of the bf16 fleet's drain of the 16
+    requests (2 replicas on this card, ``step()`` from one thread; the
+    device work of ``run()`` is the same launches), beside the unprofiled
+    wall times of the fleet phase (a): the share of each the card is busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import DataParallelEngine
+
+    cfg = get_config("olmo-1b")
+    params = init_decoder_lm(cfg, seed=0, dtype=torch.bfloat16,
+                             device="cuda")
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **FLEET_KW)
+    for p in fleet_requests(cfg):
+        fleet.submit(p, 32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while not fleet.drained():
+            fleet.step()
+        torch.cuda.synchronize()
+    busy = sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+               for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")) / 1e6
+    log(f"profile fleet: the 16-request drain holds {busy:.3f} s of device "
+        f"time on {name}; busy " + ", ".join(
+            f"{100 * busy / w:.1f}% of {k}'s {w:.2f} s"
+            for k, w in walls.items()))
+
+
 def profile_phase(name, tp=1, steps=5):
     """``--profile``: a torch.profiler trace of ``steps`` steady decode steps
     of the full-width engine at ``tp`` shards (a fresh one, after the main
@@ -1129,9 +1606,11 @@ def main() -> int:
         log(f"engine tp={TP}: bf16 {part} K/V {e2:.4g} from float32 against "
             f"TP=1's {e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
     del f32, f32_tp, one, tp
+    walls = fleet_phase(name)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)
+        profile_fleet(name, walls)
 
     kernels = [results["paged_attention"], results["kv_append"],
                results["paged_attention_sharded"],

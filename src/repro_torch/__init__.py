@@ -14,6 +14,8 @@ Module map (port -> JAX counterpart):
                                         and ``superblock_floor`` only)
 ``core/allocator.py`` (copy)            ``repro/core/allocator.py``
 ``core/reclaim_policy.py`` (copy)       ``repro/core/reclaim_policy.py``
+``core/chaos.py``                       ``repro/core/chaos.py`` (snapshot's
+                                        bump a device op)
 ``core/pagepool.py``                    ``repro/core/pagepool.py``
 ``models/layers.py``                    ``repro/models/layers.py`` (dense
                                         subset: norms, RoPE, QKV, MLPs)
@@ -38,6 +40,8 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``kernels/build.py``                    (nvcc build + ctypes load)
 ``launch/mesh.py``                      ``repro/launch/mesh.py``
                                         (``make_serving_mesh`` only)
+``launch/serve.py``                     ``repro/launch/serve.py`` (plus
+                                        ``--device``)
 ``sharding/rules.py``                   ``repro/sharding/rules.py`` (serving
                                         TP subset: weights, paged arena)
 ``serving/paged_decode.py``             ``repro/serving/paged_decode.py``
@@ -45,20 +49,22 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``serving/runner.py``                   ``repro/serving/runner.py``
 ``serving/scheduler.py`` (copy)         ``repro/serving/scheduler.py``
 ``serving/stats.py``, ``draft.py``,     ``repro/serving/`` same names
-``overload.py`` (copies)
+``overload.py``, ``traffic.py``
+(copies)
 ``serving/engine.py``                   ``repro/serving/engine.py``
+``serving/parallel.py``                 ``repro/serving/parallel.py`` (one
+                                        driver thread per replica, its
+                                        device made current)
 =====================================  =======================================
 
 "(copy)" modules equal their originals apart from import lines (and
 ``Request.pages``, which reads a CPU or CUDA block table);
 ``tests/test_torch_engine.py`` pins that.
 
-Not yet ported: ``core/chaos.py``, ``serving/traffic.py`` and
-``serving/parallel.py`` (chaos layer, open-loop traffic, data-parallel
-fleet, and with it the 2D replica × tensor fleet); the replicated KV arena
-for head counts the tensor-parallel degree does not divide; MoE, VLM, SSM,
-hybrid and encoder-decoder families; training (``models/model.py``,
-``optim/``, ``data/``, ``checkpoint/``); ``launch/*`` apart from
-``make_serving_mesh`` (``serve.py --tp`` included); the host arena and
-lock-free reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
+Not yet ported: the replicated KV arena for head counts the
+tensor-parallel degree does not divide; MoE, VLM, SSM, hybrid and
+encoder-decoder families; training (``models/model.py``, ``optim/``,
+``data/``, ``checkpoint/``); ``launch/*`` apart from
+``make_serving_mesh`` and ``serve.py``; the host arena and lock-free
+reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
 """

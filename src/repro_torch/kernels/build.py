@@ -9,6 +9,12 @@ loads.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Only sources in the repository are built.  With no ``nvcc`` or no GPU,
 loading raises: there is no fallback.
+
+The data-parallel fleet drives its replicas from one thread each, so what
+the kernel modules share across calls is thread-safe: :func:`load` and
+the typed entry points are cached by :func:`locked_cache` (threads that
+meet a cold library wait for one build instead of each starting
+``nvcc``), and the launch counters move through :func:`count_launch`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -86,7 +93,33 @@ def build_all() -> dict[str, str]:
     return {n: _finish(n, *started[n]) for n in SOURCES}
 
 
-@functools.cache
+def locked_cache(fn):
+    """``functools.cache`` of ``fn`` whose calls hold a lock, so one thread
+    computes a missing entry while the others wait for it (the cache alone
+    lets two threads both compute it).  ``__wrapped__`` is ``fn``;
+    ``cache_clear`` empties the cache."""
+    cached = functools.cache(fn)
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def call(*args):
+        with lock:
+            return cached(*args)
+    call.cache_clear = cached.cache_clear
+    return call
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``, a kernel wrapper's launch counter, under
+    a lock: a bare ``+=`` from two driver threads can lose a count."""
+    with _count_lock:
+        fn.launches += 1
+
+
+@locked_cache
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built first if needed)."""
     import torch

@@ -16,11 +16,10 @@ holds the kernel against (bit-exact: both move the same bits).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .build import load
+from .build import count_launch, load, locked_cache
 
 
 def _masks(k_pages, block_tables, lengths, n_new, write_ok, C):
@@ -48,7 +47,7 @@ def kv_append_plain(k_pages, v_pages, k_new, v_new, block_tables, lengths,
     v_pages.index_put_((pages[b, j], slot[b, j]), v_new[b, j].to(v_pages.dtype))
 
 
-@functools.cache
+@locked_cache
 def _launcher():
     """The kernel's C entry point, typed once per process."""
     fn = load("kv_append").kv_append_launch
@@ -100,7 +99,7 @@ def kv_append_cuda(k_pages, v_pages, k_new, v_new, block_tables, lengths,
             torch.cuda.current_stream(k_pages.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kv_append kernel launch failed: CUDA error {err}")
-    kv_append_cuda.launches += 1
+    count_launch(kv_append_cuda)
 
 
 #: launches of the CUDA kernel since the last reset (a plain integer)

@@ -31,11 +31,11 @@ the plain versions per shard.
 from __future__ import annotations
 
 import ctypes
-import functools
+import threading
 
 import torch
 
-from .build import load
+from .build import count_launch, load, locked_cache
 from .kv_append import kv_append_plain
 from .ref import paged_attention_chunked_ref
 
@@ -72,7 +72,7 @@ def paged_attention_append_plain(q, k_pages, v_pages, k_new, v_new,
                                  chunk_lens)
 
 
-@functools.cache
+@locked_cache
 def _launcher():
     """The kernel's C entry point, typed once per process."""
     fn = load("paged_attention").paged_attention_launch
@@ -82,17 +82,23 @@ def _launcher():
 
 
 _tickets: dict = {}
+_tickets_lock = threading.Lock()
 
 
 def _ticket_buffer(device, stream: int, n: int):
     """The zeroed int32 ticket counters of the split merge, one buffer per
     (device, stream): the last block of each (row, head) resets its ticket,
-    so the buffer is zero again whenever a launch has ended."""
-    buf = _tickets.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[(device, stream)] = buf
-    return buf
+    so the buffer is zero again whenever a launch has ended.  Launches on
+    one stream run in order, so every thread that launches on it (a
+    fleet's driver threads on one card's default stream) may share the
+    buffer; the get-or-grow holds a lock, so two threads that grow it at
+    once keep one buffer."""
+    with _tickets_lock:
+        buf = _tickets.get((device, stream))
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _tickets[(device, stream)] = buf
+        return buf
 
 
 def _check(cond: bool, msg: str, name: str = "paged_attention_cuda") -> None:
@@ -162,7 +168,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention_cuda.launches += 1
+    count_launch(paged_attention_cuda)
     return out
 
 
@@ -212,7 +218,7 @@ def paged_attention_append_cuda(q, k_pages, v_pages, k_new, v_new,
     out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                                chunk_lens, pages_per_compute_block,
                                _splits=_splits, _append=new)
-    paged_attention_append_cuda.launches += 1
+    count_launch(paged_attention_append_cuda)
     return out
 
 
@@ -303,7 +309,7 @@ def paged_attention_sharded(qs, ks, vs, block_tables, lengths, chunk_lens, *,
             kn, vn, ok = new
             outs.append(paged_attention_append_cuda(
                 q, k, v, kn, vn, bt, ln, cl, ok, pages_per_compute_block))
-        paged_attention_sharded.launches += 1
+        count_launch(paged_attention_sharded)
     return outs
 
 

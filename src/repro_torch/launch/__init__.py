@@ -1,1 +1,2 @@
-"""Launch helpers: the tensor-parallel serving mesh (``mesh.py``)."""
+"""Launch helpers: the tensor-parallel serving mesh (``mesh.py``) and the
+serving CLI (``serve.py``)."""

@@ -86,6 +86,15 @@ def init_decoder_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     return params
 
 
+def _map(tree, fn):
+    """``fn`` of every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
 def _pdict(d: dict) -> nn.ParameterDict:
     return nn.ParameterDict(
         {k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
@@ -123,6 +132,18 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         """Where the weights live."""
         return self.embed["tok"].device
+
+    def placed(self, device) -> "DecoderLM":
+        """These weights on ``device``: this module itself where they already
+        lie there, else a copy there.  Unlike ``.to()``, which moves a
+        module in place, the caller's module never moves, so replicas on
+        two devices can be built from one model."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if self.device == dev:
+            return self
+        return DecoderLM(self.cfg, _map(self.tree(), lambda t: t.to(dev)))
 
     def tree(self) -> dict:
         """The parameters as the nested dicts the module is built from."""

@@ -1,15 +1,14 @@
 """PagedServingEngine: the thin facade over the layered serving stack.
 
 The port of ``repro.serving.engine``: the same constructor and surface,
-minus ``chaos`` (not yet ported), with ``device=`` — ``"cuda"`` unless the
-caller asks for ``"cpu"``.  ``tensor_parallel=T, devices=[...]`` serves on
-T shards (``launch/mesh.py``): the engine splits the full parameters it is
-given by ``sharding/rules.py``, keeps one contiguous KV slab of Hkv/T heads
-per shard (a head count T does not divide is a ``ValueError``: the
-reference's replicated arena is not ported), and keeps the pool and
-per-slot state once on the first device (the reference replicates them
-over its mesh).  Wiring and delegation over
-three layers with explicit contracts:
+with ``device=`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
+``tensor_parallel=T, devices=[...]`` serves on T shards
+(``launch/mesh.py``): the engine splits the full parameters it is given by
+``sharding/rules.py``, keeps one contiguous KV slab of Hkv/T heads per
+shard (a head count T does not divide is a ``ValueError``: the reference's
+replicated arena is not ported), and keeps the pool and per-slot state
+once on the first device (the reference replicates them over its mesh).
+Wiring and delegation over three layers with explicit contracts:
 
 - :class:`repro_torch.serving.scheduler.Scheduler` — continuous-batching
   POLICY (admission, Sarathi budgets, AIMD backoff, victims, prefix index,
@@ -28,6 +27,7 @@ from __future__ import annotations
 
 import time
 
+from repro_torch.core.chaos import ChaosAllocator, ChaosConfig
 from repro_torch.core.pagepool import DEFAULT_PAGES_PER_SUPERBLOCK, DevicePagePool
 from repro_torch.core.reclaim_policy import ReclamationPolicy, make_policy
 from repro_torch.core.vm import ReleaseStrategy
@@ -60,6 +60,7 @@ class PagedServingEngine:
                  release_quiescence: int | str | None = None,
                  reclaim_policy: str | ReclamationPolicy | None = None,
                  min_mapped_superblocks: int = 1,
+                 chaos: ChaosConfig | None = None,
                  prefix_cache: bool = False,
                  prefix_cache_pages: int | None = None,
                  prefill_chunk: int = 1,
@@ -105,16 +106,24 @@ class PagedServingEngine:
             if device is None and devices:
                 device = devices[0]
             self.device = resolve_device(device)
-            # ``params``: a DecoderLM, or the nested dicts it is built from
+            # ``params``: a DecoderLM, or the nested dicts it is built from;
+            # weights already on this device are shared (they are read-only:
+            # a fleet's replicas on one card hold one copy)
             model = (params if isinstance(params, DecoderLM)
                      else DecoderLM(cfg, params))
-            self.params = model.to(self.device)
+            self.params = model.placed(self.device)
         self.stats = EngineStats()
         allocator = DevicePagePool(num_pages, pages_per_superblock,
                                    release_strategy, device=self.device)
+        if chaos is not None:
+            # fault injection wraps the PROTOCOL, not the pool: the whole
+            # stack above sees denials/perturbations through the same
+            # Allocator surface it always talks to (core/chaos.py)
+            allocator = ChaosAllocator(allocator, chaos)
         # reclamation policy (core/reclaim_policy.py): a name, a ready
         # instance, or None (the RECLAIM_POLICY env var, default
-        # oa-validate); wrap() may interpose on the allocator (interval)
+        # oa-validate).  wrap() interposes OUTSIDE chaos so the interval
+        # limbo defers the frees the fault schedule perturbs too.
         policy = (reclaim_policy
                   if isinstance(reclaim_policy, ReclamationPolicy)
                   else make_policy(reclaim_policy))
@@ -232,7 +241,7 @@ class PagedServingEngine:
             self.scheduler.maintain()
         if not self.scheduler.running:
             # drain complete: apply any frees still deferred (interval
-            # limbo) so the mirrors and release floors see
+            # limbo, chaos delays) so the mirrors and release floors see
             # the true free state — zero readers, so this is always sound
             self._reclaim_policy.flush()
         if (self.scheduler.release_quiescence is not None

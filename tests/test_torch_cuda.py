@@ -297,3 +297,36 @@ def test_cuda_tp2_engine_matches_tp1(cuda):
         assert st.warnings_fired == int(eng.pool.clock.cpu())
         out.append(([r.generated for r in reqs], st.steps, st.preemptions))
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_threads_match_cpu_fleet(cuda):
+    """Two replicas on one card driven by two threads (``run()``) generate
+    the CPU fleet's tokens from the same float32 weights, with the kernel
+    launches of every replica step counted (none lost across threads) and
+    the clock mirror per replica."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.paged_attention import paged_attention_append_cuda
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import DataParallelEngine
+
+    cfg = reduced(get_config("olmo-1b"))
+    params = init_decoder_lm(cfg, seed=4, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(3, 14, 8)]
+    out = []
+    for dev in ("cpu", cuda):
+        fleet = DataParallelEngine(cfg, params, replicas=2,
+                                   devices=[dev, dev], num_pages=16,
+                                   page_size=4, max_batch=3, prefill_chunk=8)
+        reqs = [fleet.submit(p, 6) for p in prompts]
+        before = paged_attention_append_cuda.launches
+        st = fleet.run()
+        if dev == cuda:
+            assert paged_attention_append_cuda.launches - before == \
+                cfg.n_layers * st.steps
+        for e in fleet.replicas:
+            assert e.stats.warnings_fired == int(e.pool.clock.cpu())
+        out.append(([r.generated for r in reqs], st.steps, st.preemptions))
+    assert out[0] == out[1]

@@ -196,7 +196,8 @@ COPIES = ([f"configs/{p.name}" for p in
            sorted((REPO / "src/repro/configs").glob("*.py"))
            if p.name not in ("__init__.py", "base.py")]
           + ["core/allocator.py", "core/reclaim_policy.py", "serving/stats.py",
-             "serving/draft.py", "serving/overload.py", "serving/scheduler.py"])
+             "serving/draft.py", "serving/overload.py", "serving/scheduler.py",
+             "serving/traffic.py"])
 
 
 class _StripImports(ast.NodeTransformer):
