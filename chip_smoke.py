@@ -31,20 +31,39 @@ run with a nonzero exit and no result line.
    tolerance against the plain version, over kernel 1's sweep, the split
    edge cases, long rows, GQA with two query groups, denied rows, -1 pages
    and page ids past the arena; then timed as kernel 1 is, beside the pair.
-3. Parity: a reduced olmo-1b engine on the card against the same engine on
-   the CPU (plain versions), float32 weights: generated tokens must agree.
-4. Engines: full-width olmo-1b served through ``PagedServingEngine``, at
-   TP=1 and at ``tensor_parallel=TP`` with every shard on this card
-   (``devices=["cuda:0"] * TP``), with seeded float32 weights and then the
-   same weights in bf16 (the main path).  In each run every request must
-   finish, the clock mirror must equal the pool's clock, the fused launch
-   must run once per layer per shard per step and ``kv_append_cuda`` never,
-   and a steady step must make exactly one device->host transfer.  Across runs: in float32, TP=2 must
-   equal TP=1 (tokens, and the K/V of every position written, within
-   2e-2 + 2e-2|x|); in bf16, TP=2's K/V must stay as close to float32's as
-   TP=1's do (mean abs difference within 1.25x), over the prompt positions
-   and, apart, over the generated positions where both still feed the
-   model float32's tokens; the tokens TP=2 shares with TP=1 are printed.
+   Multi-query at head dim 256 (paligemma-3b's decoder: one KV head, 8
+   query heads, 4 a shard): kernel 1 and the fused launch over the split
+   edge cases (bf16, float32, float32 q over a bf16 arena) and at the
+   serving shapes, timed there; kernel 3 over a replicated arena (two
+   copies, each shard appending the same K/V to its own) bit for bit one
+   launch over all query heads, timed.
+3. Parity: reduced olmo-1b and olmoe-1b-7b engines on the card against the
+   same engines on the CPU (plain versions), float32 weights: generated
+   tokens must agree.
+4. Engines: full-width olmo-1b, olmoe-1b-7b (MoE: 64 experts top-8, the
+   dropless expert layer in the fused step, each expert's hidden axis
+   split at TP=2) and paligemma-3b (its text decoder: one KV head of 256,
+   the arena replicated at TP=2) served through ``PagedServingEngine``,
+   each at TP=1 and at ``tensor_parallel=TP`` with every shard on this
+   card (``devices=["cuda:0"] * TP``), with seeded float32 weights and then
+   the same weights in bf16 (the main path).  In each run every request
+   must finish, the clock mirror must equal the pool's clock, the fused
+   launch must run once per layer per shard per step and
+   ``kv_append_cuda`` never, and a steady step must make exactly one
+   device->host transfer; over a replicated arena the shards' copies must
+   be bitwise equal after the run, each the whole arena's bytes.  Across
+   runs: in float32, TP=2 must equal TP=1 in tokens, and in the K/V of
+   every position written within 2e-2 + 2e-2|x| (olmo-1b and paligemma;
+   for olmoe wherever no router flip reaches: both float32 runs record
+   every token's top-k expert set and the router's k-th minus (k+1)-th
+   probability; every K/V element beyond the tolerance must lie
+   downstream of a flip, and a flip no other flip reaches must be a near
+   tie, its gap below 1e-4);
+   in bf16, TP=2's K/V must stay
+   as close to float32's as TP=1's do (mean abs difference within 1.25x),
+   over the prompt positions and, apart, over the generated positions
+   where both still feed the model float32's tokens; the tokens TP=2
+   shares with TP=1 are printed.
 5. Fleet: full-width olmo-1b (the engine phase's configuration, 16
    requests unless stated) served by ``DataParallelEngine`` with both
    replicas on this card.  Each path has its launch counts set to 0 just
@@ -73,18 +92,21 @@ run with a nonzero exit and no result line.
    2``, ``--classes --stream``, ``--trace``.
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
-sharded kernel 3 and the fused launch; launches from the bf16 TP=1 run for
-kernels 1 and 2 and the fused launch, from the bf16 TP=2 run for kernel 3;
-kernel 1 counts its launches with and without the append, kernel 2 is off
-the serving path and counts 0); the last line is
-``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA.
-``--profile`` adds a torch.profiler breakdown of steady full-width decode
-steps at TP=1 and at TP=2 after the engine runs, and the device time of
-the fleet's drain beside the fleet phase's wall times.
+sharded kernel 3 and the fused launch; launches from the olmoe-1b-7b bf16
+TP=1 run for kernels 1 and 2 and the fused launch, from its bf16 TP=2 run
+for kernel 3 — paligemma's are in its own log lines; kernel 1 counts
+its launches with and without the append, kernel 2 is off the serving path
+and counts 0); the last line is ``{"ok": true, "device": {...}}``.  Exits
+nonzero without CUDA.  ``--profile`` adds a torch.profiler breakdown of
+steady full-width decode steps (olmo-1b at TP=1 and TP=2, olmoe-1b-7b at
+TP=1 with its expert layer alone at the step's shapes, paligemma-3b at
+TP=2) after the fleet phase, and the device time of the fleet's drain
+beside the fleet phase's wall times.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -494,6 +516,7 @@ def kernel_phase(results):
          if k not in ("name", "route", "source", "replaces")}))
 
     fused_kernel(results, lens)
+    mqa_kernel(results, lens)
 
 
 def append_inputs(case, seed, deny=1):
@@ -551,6 +574,59 @@ def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None):
     return err
 
 
+def fused_row(case, label, seed):
+    """The fused launch on ``case`` (every row appending its chunk) checked
+    by :func:`fused_check`, then timed beside its bound, its plain
+    version, the library yardstick (``index_put_`` of the new K/V, then
+    the gather + SDPA call) and the two-launch pair.  Logs and returns the
+    row."""
+    import torch
+
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_append_plain,
+        paged_attention_cuda)
+
+    q, kp, vp, bt, ln, cl = case
+    C = q.shape[1]
+    kn, vn, ok = append_inputs(case, seed=seed, deny=None)
+    err = fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, f"{label} timed case")
+    old = ln - cl
+    byts, ops = attention_work(q, kp, bt, ln, cl)
+    # the append's reads are kernel 1's reads of those positions; its
+    # writes and write_ok come on top
+    byts += 2 * kn.numel() * kn.element_size() + q.shape[0]
+    b_ms, by = bound_ms(byts, ops, "bfloat16")
+    page = kp.shape[1]
+    pos = old.long()[:, None] + torch.arange(C, device="cuda")[None]
+    pidx = bt.long().gather(1, pos // page)
+    sidx = pos % page
+    yard = sdpa_yardstick(q, kp, vp, bt, ln, cl)
+
+    def library():
+        kp.index_put_((pidx, sidx), kn)
+        vp.index_put_((pidx, sidx), vn)
+        return yard()
+
+    def mine():
+        paged_attention_append_cuda(q, kp, vp, kn, vn, bt, ln, cl, ok)
+
+    def pair():
+        kv_append_cuda(kp, vp, kn, vn, bt, old, cl, ok)
+        paged_attention_cuda(q, kp, vp, bt, ln, cl)
+    row = dict(
+        max_abs_err=err, ms=time_ms(mine),
+        device_ms=device_ms(mine, "paged_attention_kernel"),
+        plain_ms=time_ms(lambda: paged_attention_append_plain(
+            q, kp, vp, kn, vn, bt, ln, cl, ok), iters=5),
+        bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
+        library_device_ms=device_ms(library),
+        pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
+    row["bound_share"] = b_ms / row["device_ms"]
+    log(f"{label}: " + json.dumps(row))
+    return row
+
+
 def fused_kernel(results, lens):
     """Kernel 2 fused into kernel 1's launch: bitwise against the
     two-launch pair over kernel 1's cases, then timed at the serving
@@ -558,10 +634,6 @@ def fused_kernel(results, lens):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.kv_append import kv_append_cuda
-    from repro_torch.kernels.paged_attention import (
-        paged_attention_append_cuda, paged_attention_append_plain,
-        paged_attention_cuda)
     from split_cases import append_edge_case
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -614,44 +686,7 @@ def fused_kernel(results, lens):
         case = attention_case(8, C, 16, 16, 128, 16, 512, 512, bf16, seed=7,
                               lens=lens)
         case[5].fill_(C)
-        q, kp, vp, bt, ln, cl = case
-        kn, vn, ok = append_inputs(case, seed=7, deny=None)
-        err = fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok,
-                          f"fused C={C} timed case")
-        old = ln - cl
-        B, Hkv, D = 8, 16, 128
-        byts, ops = attention_work(q, kp, bt, ln, cl)
-        # the append's reads are kernel 1's reads of those positions; its
-        # writes and write_ok come on top
-        byts += 2 * kn.numel() * kn.element_size() + B
-        b_ms, by = bound_ms(byts, ops, "bfloat16")
-        page = kp.shape[1]
-        pos = old.long()[:, None] + torch.arange(C, device="cuda")[None]
-        pidx = bt.long().gather(1, pos // page)
-        sidx = pos % page
-        yard = sdpa_yardstick(q, kp, vp, bt, ln, cl)
-
-        def library():
-            kp.index_put_((pidx, sidx), kn)
-            vp.index_put_((pidx, sidx), vn)
-            return yard()
-
-        def mine():
-            paged_attention_append_cuda(q, kp, vp, kn, vn, bt, ln, cl, ok)
-
-        def pair():
-            kv_append_cuda(kp, vp, kn, vn, bt, old, cl, ok)
-            paged_attention_cuda(q, kp, vp, bt, ln, cl)
-        rows[C] = dict(
-            max_abs_err=err, ms=time_ms(mine),
-            device_ms=device_ms(mine, "paged_attention_kernel"),
-            plain_ms=time_ms(lambda: paged_attention_append_plain(
-                q, kp, vp, kn, vn, bt, ln, cl, ok), iters=5),
-            bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
-            library_device_ms=device_ms(library),
-            pair_ms=time_ms(pair), pair_device_ms=device_ms(pair))
-        rows[C]["bound_share"] = b_ms / rows[C]["device_ms"]
-        log(f"paged_attention_append C={C}: " + json.dumps(rows[C]))
+        rows[C] = fused_row(case, f"paged_attention_append C={C}", seed=7)
     results["paged_attention_append"] = dict(
         name="paged_attention_append", route="cuda", source=PA_SRC,
         replaces=KA_TPU, **rows[1])
@@ -762,10 +797,132 @@ def sharded_kernel(results, lens):
         rows[C]["bound_share"] = b_ms / rows[C]["device_ms"]
         log(f"paged_attention_sharded C={C}, {TP} shards: "
             + json.dumps(rows[C]))
+        if C == 16:  # C=1's call time again, after C=16: the order's part
+            rows[1]["ms_after_c16"] = time_ms(c1_call)
+            log(f"paged_attention_sharded C=1, {TP} shards, call ms timed "
+                f"again after C=16: {rows[1]['ms_after_c16']:.4g} (first "
+                f"{rows[1]['ms']:.4g})")
+        else:
+            c1_call = mine
     results["paged_attention_sharded"] = dict(
         name="paged_attention_sharded", route="cuda", source=PA_SRC,
         replaces=PS_TPU, **rows[1])
     results["paged_attention_sharded_c16"] = rows[16]
+
+
+def mqa_kernel(results, lens):
+    """Kernels 1 and 3 and the fused launch at multi-query shapes: head dim
+    256 and one KV head (paligemma-3b's decoder: 8 query heads at TP=1, 4
+    per shard at TP=2, the arena replicated).  Checked against the plain
+    versions on the split edge cases and at the serving shapes, then timed
+    there (bf16 pages, C = 1 and 16); kernel 3 as two shard launches over
+    two copies of the arena, each appending the same new K/V, bit for bit
+    one launch over all 8 query heads."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded,
+        paged_attention_sharded_plain)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from split_cases import append_edge_case
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 1e-4, bf16: 2e-2}
+    n_cases = 0
+    for S in (1, 2):
+        for C in (1, 16):
+            for Hq in (8, 4):
+                arrays = [torch.as_tensor(a, device="cuda") for a in
+                          append_edge_case(S, 16, C, Hq, 1, 256,
+                                           seed=700 + 10 * S + C + Hq)]
+                for qd, kd in ((bf16, bf16), (f32, f32), (f32, bf16)):
+                    q = arrays[0].to(qd)
+                    k, v, kn, vn = (a.to(kd) for a in arrays[1:5])
+                    bt, ln, cl, ok = arrays[5:]
+                    label = f"mqa D=256 S={S} C={C} Hq={Hq} {qd} q, {kd} arena"
+                    if qd == kd:
+                        got = paged_attention_cuda(q, k, v, bt, ln, cl,
+                                                   _splits=S)
+                        want = paged_attention_plain(q, k, v, bt, ln, cl)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        check(math.isfinite(err) and err <= tol[kd],
+                              f"{label}: max err {err}")
+                    fused_check(q, k, v, kn, vn, bt, ln, cl, ok, label, S=S)
+                    n_cases += 1
+    log(f"mqa: {n_cases} head-dim-256 one-KV-head cases (split edge cases at "
+        f"S = 1, 2; C = 1, 16; 8 and 4 query heads; bf16, float32 and "
+        f"float32 q over a bf16 arena) match the plain versions; the fused "
+        f"launch bitwise the two-launch pair")
+
+    mesh = make_serving_mesh(TP, ["cuda:0"] * TP)
+    for C in (1, 16):
+        for Hq in (8, 4):
+            case = attention_case(8, C, Hq, 1, 256, 16, 512, 512, bf16,
+                                  seed=11, lens=lens)
+            case[5].fill_(C)
+            label = f"mqa D=256 Hq={Hq}"
+            results[f"mqa_attention_c{C}_hq{Hq}"] = attention_row(
+                case, f"paged_attention {label} C={C}")
+            results[f"mqa_append_c{C}_hq{Hq}"] = fused_row(
+                [a.clone() for a in case],
+                f"paged_attention_append {label} C={C}", seed=11)
+
+        # kernel 3 over the replicated arena: 8 query heads, 4 a shard
+        q, kp, vp, bt, ln, cl = attention_case(8, C, 8, 1, 256, 16, 512, 512,
+                                               bf16, seed=12, lens=lens)
+        cl.fill_(C)
+        kn, vn, ok = append_inputs((q, kp, vp, bt, ln, cl), seed=12,
+                                   deny=None)
+        qs = [t.contiguous() for t in q.chunk(TP, dim=2)]
+        full = [kp.clone(), vp.clone()]
+        want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln, cl, ok)
+        copies = [[kp.clone(), vp.clone()] for _ in range(TP)]
+        before = paged_attention_sharded.launches
+        outs = paged_attention_sharded(
+            qs, [c[0] for c in copies], [c[1] for c in copies], bt, ln, cl,
+            mesh=mesh, n_kv_heads=TP, append=([kn] * TP, [vn] * TP, ok))
+        torch.cuda.synchronize()
+        check(paged_attention_sharded.launches - before == TP,
+              "mqa kernel 3: one launch per shard")
+        check(torch.equal(torch.cat(outs, dim=2), want)
+              and all(torch.equal(c[0], full[0]) and torch.equal(c[1], full[1])
+                      for c in copies),
+              f"mqa kernel 3 C={C}: per-shard launches over the replicated "
+              f"arena differ from one launch over all query heads")
+        err = (torch.cat(outs, dim=2).float() - paged_attention_plain(
+            q, *full, bt, ln, cl).float()).abs().max().item()
+        check(err <= tol[bf16], f"mqa kernel 3 C={C}: max err {err}")
+        # timed over the two distinct copies: each launch streams its own
+        # arena from memory, as the bound counts it
+        ks, vs = [c[0] for c in copies], [c[1] for c in copies]
+        byts = ops = 0
+        for qq, kk in zip(qs, ks):  # each shard's launch reads its inputs
+            b_, o_ = attention_work(qq, kk, bt, ln, cl)
+            byts, ops = byts + b_, ops + o_
+        b_ms, by = bound_ms(byts, ops, "bfloat16")
+        yard = [sdpa_yardstick(qq, kk, vv, bt, ln, cl)
+                for qq, kk, vv in zip(qs, ks, vs)]
+
+        def mine():
+            paged_attention_sharded(qs, ks, vs, bt, ln, cl, mesh=mesh,
+                                    n_kv_heads=TP)
+
+        def library():
+            for f in yard:
+                f()
+        row = dict(
+            max_abs_err=err, ms=time_ms(mine),
+            device_ms=device_ms(mine, "paged_attention_kernel"),
+            plain_ms=time_ms(lambda: paged_attention_sharded_plain(
+                qs, ks, vs, bt, ln, cl, mesh=mesh, n_kv_heads=TP), iters=5),
+            bound_ms=b_ms, bound_by=by, library_ms=time_ms(library),
+            library_device_ms=device_ms(library))
+        row["bound_share"] = b_ms / row["device_ms"]
+        results[f"mqa_sharded_c{C}"] = row
+        log(f"paged_attention_sharded mqa D=256 C={C}, {TP} shards over a "
+            f"replicated arena: " + json.dumps(row))
 
 
 # ---------------------------------------------------------------------------
@@ -780,25 +937,29 @@ def parity_phase():
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
-    cfg = reduced(get_config("olmo-1b"))
-    params = init_decoder_lm(cfg, seed=3, dtype=torch.float32, device="cpu")
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(3, 20, 6)]
-    out = {}
-    for dev in ("cpu", "cuda"):
-        eng = PagedServingEngine(cfg, params, num_pages=24, page_size=4,
-                                 max_batch=3, prefill_chunk=8, device=dev)
-        reqs = [eng.submit(p, 8) for p in prompts]
-        st = eng.run()
-        check(all(r.state == "finished" for r in reqs), f"{dev}: unfinished")
-        check(st.warnings_fired == int(eng.pool.clock.cpu()),
-              f"{dev}: clock mirror {st.warnings_fired} != pool clock")
-        out[dev] = ([r.generated for r in reqs], st.steps, st.preemptions)
-    check(out["cpu"] == out["cuda"],
-          f"card and CPU disagree on the reduced model: {out}")
-    log(f"parity: reduced olmo-1b, 6 requests, card == CPU (tokens, "
-        f"{out['cpu'][1]} steps, {out['cpu'][2]} preemptions)")
+    for arch in ("olmo-1b", "olmoe-1b-7b"):
+        cfg = reduced(get_config(arch))
+        params = init_decoder_lm(cfg, seed=3, dtype=torch.float32,
+                                 device="cpu")
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in rng.integers(3, 20, 6)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = PagedServingEngine(cfg, params, num_pages=24, page_size=4,
+                                     max_batch=3, prefill_chunk=8, device=dev)
+            reqs = [eng.submit(p, 8) for p in prompts]
+            st = eng.run()
+            check(all(r.state == "finished" for r in reqs),
+                  f"{arch} {dev}: unfinished")
+            check(st.warnings_fired == int(eng.pool.clock.cpu()),
+                  f"{arch} {dev}: clock mirror {st.warnings_fired} != pool "
+                  f"clock")
+            out[dev] = ([r.generated for r in reqs], st.steps, st.preemptions)
+        check(out["cpu"] == out["cuda"],
+              f"card and CPU disagree on reduced {arch}: {out}")
+        log(f"parity: reduced {arch}, 6 requests, card == CPU (tokens, "
+            f"{out['cpu'][1]} steps, {out['cpu'][2]} preemptions)")
 
 
 # ---------------------------------------------------------------------------
@@ -857,11 +1018,172 @@ def kv_distance(run, base, depth):
     return out
 
 
-def engine_phase(results, name, tp=1, dtype="bfloat16"):
-    """Serve the 8 requests on full-width olmo-1b with ``dtype`` weights;
-    ``tp`` > 1 serves them on ``tp`` shards of this card.  Returns
-    (generated tokens, per request the K/V of every position it wrote —
-    read just before its last step —, the phase's tag, prompt lengths)."""
+@contextlib.contextmanager
+def route_trace(records, slots):
+    """While open, every fused step appends to ``records`` its rows'
+    ``lengths`` and live chunk lengths and ``slots()`` (row -> request
+    index), and every MoE router call of that step the top-k expert set
+    of each (row, chunk) token, sorted, and the gap between the router's
+    k-th and (k+1)-th probability.  Device tensors only: the step keeps
+    its one host read."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.serving import paged_decode
+
+    core, route = paged_decode._chunk_core, moe._route
+
+    def traced_core(model, kv, block_tables, lengths, tokens, n_new, **kw):
+        records.append((lengths.clone(), n_new.clone(), slots(), []))
+        return core(model, kv, block_tables, lengths, tokens, n_new, **kw)
+
+    def traced_route(cfg, x, w_router):
+        probs, gate, expert = route(cfg, x, w_router)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        k = cfg.top_k
+        records[-1][3].append((expert.sort(dim=-1).values.to(torch.int16),
+                               top[..., k - 1] - top[..., k]))
+        return probs, gate, expert
+
+    paged_decode._chunk_core, moe._route = traced_core, traced_route
+    try:
+        yield records
+    finally:
+        paged_decode._chunk_core, moe._route = core, route
+
+
+def routes_by_position(records, cfg, n_req, tag):
+    """:func:`route_trace`'s records per request and position: (sel [n_req,
+    L, n, k] int16 top-k sets, -1 where unwritten; gap [n_req, L, n]
+    float32).  Under TP every shard routes (the router is replicated):
+    their sets must be equal; shard 0's are kept."""
+    import numpy as np
+    import torch
+
+    L, k = cfg.n_layers, cfg.top_k
+    n = max(int((ln + nn).max()) for ln, nn, _, _ in records)
+    sel = np.full((n_req, L, n, k), -1, np.int16)
+    gap = np.full((n_req, L, n), np.nan, np.float32)
+    for lengths, n_new, slots, calls in records:
+        lengths, n_new = lengths.cpu().numpy(), n_new.cpu().numpy()
+        shards = len(calls) // L
+        check(len(calls) == shards * L, f"{tag}: {len(calls)} router calls "
+              f"in a step of {L} layers")
+        s_all = torch.stack([c[0] for c in calls]).cpu().numpy()
+        g_all = torch.stack([c[1] for c in calls]).cpu().numpy()
+        s_all = s_all.reshape(L, shards, *s_all.shape[1:])
+        check((s_all == s_all[:, :1]).all(),
+              f"{tag}: the shards' routers chose different experts")
+        g_all = g_all.reshape(L, shards, *g_all.shape[1:])[:, 0]
+        for b, i in slots.items():
+            for j in range(int(n_new[b])):
+                p = int(lengths[b]) + j
+                sel[i, :, p], gap[i, :, p] = s_all[:, 0, b, j], g_all[:, b, j]
+    return sel, gap
+
+
+def routing_check(run, base):
+    """Hold MoE K/V across two runs of the same tokens by their routing.
+    A position's K/V at layer l follow from the hidden states of layers
+    < l at it and at the positions before it, and from those tokens'
+    routing: where a router's top-k set differs between the runs (a
+    flip) the K/V downstream of it may differ beyond tolerance.  So the
+    check: (i) every K/V element beyond 2e-2 + 2e-2|x| lies downstream of
+    a flip (layer > the flip's, position >= its position, same request);
+    (ii) every flip that no other flip reaches is a near tie: its k-th
+    minus (k+1)-th probability is below 1e-4 in one of the runs.  It also
+    prints, at each request's first position off, the flips there
+    with both runs' gaps, the gaps at flips against all gaps, and the
+    elements beyond tolerance at positions whose own routing agrees at
+    every layer."""
+    import numpy as np
+    import torch
+
+    tag = run[2]
+    (sel_a, gap_a), (sel_b, gap_b) = run[4], base[4]
+    beyond = cone_beyond = agree_beyond = agree_elems = n_elems = 0
+    flip_gaps, root_gaps, all_gaps, firsts = [], [], [], []
+    n_flips = n_agree = n_pos = 0
+    for i, (ka, kb) in enumerate(zip(run[1], base[1])):
+        L, n = ka["k"].shape[:2]
+        bad = torch.zeros((L, n), dtype=torch.int64, device=ka["k"].device)
+        for nm in ("k", "v"):
+            d = (ka[nm] - kb[nm]).abs() > 2e-2 + 2e-2 * kb[nm].abs()
+            bad += d.flatten(2).sum(-1)
+        bad = bad.cpu().numpy()  # [L, n] elements beyond tolerance
+        per = 2 * ka["k"][0, 0].numel()  # K/V elements of one (layer, pos)
+        flip = (sel_a[i, :, :n] != sel_b[i, :, :n]).any(-1)  # [L, n]
+        check((sel_a[i, :, :n] >= 0).all() and (sel_b[i, :, :n] >= 0).all(),
+              f"{tag}: request {i}: a written position has no routing")
+        # a flip at (l', p') reaches layers > l' at positions >= p'
+        reach = np.logical_or.accumulate(
+            np.logical_or.accumulate(flip, axis=0), axis=1)
+        cone = np.zeros_like(reach)
+        cone[1:] = reach[:-1]
+        agree = ~flip.any(0)  # positions whose own routing agrees
+        beyond += int(bad.sum())
+        cone_beyond += int(bad[~cone].sum())
+        agree_beyond += int(bad[:, agree].sum())
+        agree_elems += int(agree.sum()) * L * per
+        n_elems += L * n * per
+        n_flips += int(flip.sum())
+        n_agree += int(agree.sum())
+        n_pos += n
+        both = np.minimum(gap_a[i, :, :n], gap_b[i, :, :n])
+        all_gaps.append(both.ravel())
+        flip_gaps += both[flip].tolist()
+        root_gaps += both[flip & ~cone].tolist()  # no flip upstream of it
+        off = np.nonzero(bad.any(0))[0]
+        if len(off):
+            p = int(off[0])
+            lb = int(np.nonzero(bad[:, p])[0][0])
+            ls, ps = np.nonzero(flip[:lb, :p + 1])  # the flips reaching it
+            near = sorted(zip(ps.tolist(), ls.tolist()), reverse=True)[:3]
+            firsts.append((i, p, lb, [(q, l, float(gap_a[i, l, q]),
+                                       float(gap_b[i, l, q]))
+                                      for q, l in near]))
+    all_gaps = np.concatenate(all_gaps)
+    log(f"{tag}: float32 TP={TP} against TP=1: {n_flips} (layer, position) "
+        f"router flips (top-k sets differ) over {n_pos} positions x "
+        f"{sel_a.shape[1]} layers; {beyond} of {n_elems} K/V elements beyond "
+        f"2e-2 + 2e-2|x|, {cone_beyond} of them outside every flip's "
+        f"downstream")
+    if flip_gaps:
+        q = np.quantile(all_gaps, [0.01, 0.5])
+        log(f"{tag}: k-th minus (k+1)-th router probability, the smaller "
+            f"of the two runs': at flips max {max(flip_gaps):.3g}, median "
+            f"{float(np.median(flip_gaps)):.3g}; at the {len(root_gaps)} "
+            f"flips no other flip reaches max {max(root_gaps):.3g}; over all "
+            f"(layer, position) 1% quantile {q[0]:.3g}, median {q[1]:.3g}")
+    for i, p, lb, near in firsts:
+        log(f"{tag}: request {i}: first K/V off at position {p}, layer {lb}; "
+            f"the nearest flips reaching it (position, layer, gap TP={TP}, "
+            f"gap TP=1): "
+            f"{[(q, l, f'{a:.3g}', f'{b:.3g}') for q, l, a, b in near]}")
+    log(f"{tag}: at the {n_agree} positions whose own routing agrees at "
+        f"every layer: {agree_beyond} of {agree_elems} K/V elements beyond "
+        f"tolerance")
+    check(cone_beyond == 0, f"{tag} float32: {cone_beyond} K/V elements "
+          f"beyond tolerance where no router flip reaches")
+    # a flip no other flip reaches saw inputs equal up to rounding, so it
+    # must sit at a near tie: a wrong router or expert split would flip
+    # wide margins too (the median gap is ~1e-3 at olmoe's random init)
+    widest = max(root_gaps, default=0.0)
+    check(widest < 1e-4, f"{tag} float32: a router flip no other flip "
+          f"reaches has a gap of {widest:.3g}, wider than rounding can cross")
+
+
+def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
+                 record=(), routes=False):
+    """Serve the 8 requests on full-width ``arch`` with ``dtype`` weights;
+    ``tp`` > 1 serves them on ``tp`` shards of this card (over replicated
+    arena copies where ``tp`` does not divide the KV heads: then the copies
+    must be bitwise equal after the run, each the whole arena's bytes).
+    ``record`` names the ``results`` rows whose ``launches`` take this
+    run's counts.  Returns (generated tokens, per request the K/V of every
+    position it wrote — read just before its last step —, the phase's tag,
+    prompt lengths, and with ``routes`` the MoE routing of every position:
+    :func:`routes_by_position`)."""
     import gc
 
     import numpy as np
@@ -877,9 +1199,11 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
 
     gc.collect()  # an earlier phase's engine (a reference cycle) and weights
     torch.cuda.empty_cache()
-    tag = ("engine" if tp == 1 else f"engine tp={tp}") + (
+    tag = ("engine" if arch == "olmo-1b" else arch) + (
+        "" if tp == 1 else f" tp={tp}") + (
         "" if dtype == "bfloat16" else f" {dtype}")
-    cfg = get_config("olmo-1b")
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_decoder_lm(cfg, seed=0, dtype=getattr(torch, dtype),
                              device="cuda")
@@ -893,9 +1217,12 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
                for n in rng.integers(64, 257, 8)]
     reqs = [eng.submit(p, 32) for p in prompts]
     torch.cuda.synchronize()
-    log(f"{tag}: olmo-1b full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
-        f"{cfg.vocab_padded}), set-up {time.perf_counter() - t0:.1f} s, "
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}"
+           if cfg.moe else "")
+    log(f"{tag}: {arch} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab_padded}{moe}), set-up "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     sched = eng.scheduler
@@ -911,56 +1238,62 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
     steps = steady = transfers = 0
     kv_rows = {}
     untimed = 0.0
+    records = []
+    index = {id(r): i for i, r in enumerate(reqs)}
+    trace = (route_trace(records, lambda: {r.slot: index[id(r)]
+                                           for r in sched.running})
+             if routes else contextlib.nullcontext())
     t0 = time.perf_counter()
-    while True:
-        sched.admit()
-        if not sched.running and not sched.queue:
-            break
-        last = [r for r in sched.running if id(r) not in kv_rows
-                and len(r.generated) == r.max_new_tokens - 1]
-        if last:  # reads between steps, before the rows are freed; untimed
-            t1 = time.perf_counter()
-            kv_rows.update((id(r), row_kv(eng, r)) for r in last)
-            torch.cuda.synchronize()
-            untimed += time.perf_counter() - t1
-        before = {fn: fn.launches for fn in counters}
-        is_steady = (not sched.queue and all(
-            r.committed >= len(r.prompt)
-            and len(r.generated) + 2 < r.max_new_tokens for r in sched.running))
-        if is_steady:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    eng.step()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs = [w for w in caught
-                     if "called a synchronizing" in str(w.message)]
-            check(len(syncs) == 1, f"{tag}: steady step {steps} made "
-                  f"{len(syncs)} device->host transfers: "
-                  f"{[str(w.message)[:80] for w in syncs]}")
-            steady += 1
-            transfers += len(syncs)
-        else:
-            eng.step()
-        sched.maintain()
-        steps += 1
-        got = {fn.__name__: fn.launches - before[fn] for fn in counters}
-        check(all(fn.launches - before[fn] == n for fn, n in counters.items()),
-              f"{tag} step {steps}: kernel launches {got}, want "
-              f"{ {fn.__name__: n for fn, n in counters.items()} }")
+    with trace:
+        while True:
+            sched.admit()
+            if not sched.running and not sched.queue:
+                break
+            last = [r for r in sched.running if id(r) not in kv_rows
+                    and len(r.generated) == r.max_new_tokens - 1]
+            if last:  # reads between steps, before the rows are freed
+                t1 = time.perf_counter()
+                kv_rows.update((id(r), row_kv(eng, r)) for r in last)
+                torch.cuda.synchronize()
+                untimed += time.perf_counter() - t1
+            before = {fn: fn.launches for fn in counters}
+            is_steady = (not sched.queue and all(
+                r.committed >= len(r.prompt)
+                and len(r.generated) + 2 < r.max_new_tokens
+                for r in sched.running))
+            if is_steady:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        eng.step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = [w for w in caught
+                         if "called a synchronizing" in str(w.message)]
+                check(len(syncs) == 1, f"{tag}: steady step {steps} made "
+                      f"{len(syncs)} device->host transfers: "
+                      f"{[str(w.message)[:80] for w in syncs]}")
+                steady += 1
+                transfers += len(syncs)
+            else:
+                eng.step()
+            sched.maintain()
+            steps += 1
+            got = {fn.__name__: fn.launches - before[fn] for fn in counters}
+            check(all(fn.launches - before[fn] == n
+                      for fn, n in counters.items()),
+                  f"{tag} step {steps}: kernel launches {got}, want "
+                  f"{ {fn.__name__: n for fn, n in counters.items()} }")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - untimed
     launches = {fn.__name__: fn.launches for fn in counters}
-    if dtype == "bfloat16" and tp == 1:
-        results["paged_attention"]["launches"] = paged_attention_cuda.launches
-        results["kv_append"]["launches"] = kv_append_cuda.launches
-        results["paged_attention_append"]["launches"] = \
-            paged_attention_append_cuda.launches
-    elif dtype == "bfloat16":
-        results["paged_attention_sharded"]["launches"] = \
-            paged_attention_sharded.launches
+    rows = {"paged_attention": paged_attention_cuda,
+            "kv_append": kv_append_cuda,
+            "paged_attention_append": paged_attention_append_cuda,
+            "paged_attention_sharded": paged_attention_sharded}
+    for key in record:
+        results[key]["launches"] = rows[key].launches
 
     st = eng.stats
     gen = sum(len(r.generated) for r in reqs)
@@ -978,12 +1311,27 @@ def engine_phase(results, name, tp=1, dtype="bfloat16"):
         f"{steady} steady steps with {transfers} device->host transfers, "
         f"launches {json.dumps(launches)}")
     log(f"{tag}: {gen / wall:.1f} generated tokens/s, "
-        f"{1e3 * wall / steps:.2f} ms/step, on {name}")
+        f"{1e3 * wall / steps:.2f} ms/step, on {name}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    if tp > 1 and eng.kv_manager.kv_replicated:
+        whole = 2 * cfg.n_layers * 512 * 16 * cfg.n_kv_heads * cfg.head_dim \
+            * eng.kv[0]["k"].element_size()
+        per = [sum(c[n].numel() * c[n].element_size() for n in ("k", "v"))
+               for c in eng.kv]
+        check(all(p == whole for p in per), f"{tag}: shard arena bytes {per}, "
+              f"want the whole arena's {whole} each")
+        check(all(torch.equal(c[n], eng.kv[0][n]) for c in eng.kv[1:]
+                  for n in ("k", "v")),
+              f"{tag}: the shards' replicated arena copies differ")
+        log(f"{tag}: {tp} replicated arena copies of {whole / 2**20:.1f} MiB "
+            f"each (the whole arena), bitwise equal after the run")
     tokens = [list(r.generated) for r in reqs]
     check(all(id(r) in kv_rows for r in reqs),
           f"{tag}: a request's K/V was not read before its last step")
     return (tokens, [kv_rows[id(r)] for r in reqs], tag,
-            [len(r.prompt) for r in reqs])
+            [len(r.prompt) for r in reqs],
+            routes_by_position(records, cfg, len(reqs), tag)
+            if routes else None)
 
 
 # ---------------------------------------------------------------------------
@@ -1436,20 +1784,49 @@ def profile_fleet(name, walls):
             for k, w in walls.items()))
 
 
-def profile_phase(name, tp=1, steps=5):
-    """``--profile``: a torch.profiler trace of ``steps`` steady decode steps
-    of the full-width engine at ``tp`` shards (a fresh one, after the main
-    path's counts were read): wall and device-busy time per step, and the
-    kernels that take the device time."""
-    import numpy as np
+#: substrings of the matrix-product kernels' names (cuBLAS, cuBLASLt, CUTLASS)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def device_rows(fn, calls):
+    """(device ms per call, launches per call, name) of every device op of
+    ``calls`` calls of ``fn``, from one torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []  # device-side events only: kernels and copies
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0 and str(ev.device_type).endswith("CUDA"):
+            rows.append((dev / 1e3 / calls, ev.count / calls, ev.key))
+    return rows
+
+
+def profile_phase(name, tp=1, steps=5, arch="olmo-1b"):
+    """``--profile``: a torch.profiler trace of ``steps`` steady decode steps
+    of the full-width engine at ``tp`` shards (a fresh one, after the main
+    path's counts were read): wall and device-busy time per step, and the
+    kernels that take the device time.  For an MoE model also the expert
+    layer alone at the step's shapes (decode, and a 16-token prefill
+    chunk): its device time per step and its matrix products' share."""
+    import gc
+
+    import numpy as np
+    import torch
+
     from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
-    cfg = get_config("olmo-1b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     params = init_decoder_lm(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     where = (dict(device="cuda") if tp == 1 else
              dict(tensor_parallel=tp, devices=["cuda:0"] * tp))
@@ -1470,31 +1847,42 @@ def profile_phase(name, tp=1, steps=5):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    rows = []  # device-side events only: kernels and copies
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0))
-        if dev > 0 and str(ev.device_type).endswith("CUDA"):
-            rows.append((dev / 1e3 / steps, ev.count / steps, ev.key))
+    rows = device_rows(eng.step, steps)
     busy = sum(r[0] for r in rows)
-    log(f"profile tp={tp}: {steps} steady decode steps on {name}: "
-        f"{wall:.2f} ms/step "
+    tag = f"profile {arch} tp={tp}"
+    log(f"{tag}: {steps} steady decode steps on {name}: {wall:.2f} ms/step "
         f"wall (unprofiled), {busy:.2f} ms/step of device time in "
         f"{sum(r[1] for r in rows):.0f} device ops ({100 * busy / wall:.1f}% "
         f"busy)")
     attn = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
     n_attn = sum(r[1] for r in rows if "paged_attention_kernel" in r[2])
-    log(f"profile tp={tp}: kernel 1 with the fused append {attn:.3f} "
-        f"ms/step in {n_attn:.0f} launches, {100 * attn / busy:.1f}% of the "
-        f"device time")
+    log(f"{tag}: kernel 1 with the fused append {attn:.3f} ms/step in "
+        f"{n_attn:.0f} launches, {100 * attn / busy:.1f}% of the device time")
     check(not any("kv_append_kernel" in r[2] for r in rows),
-          f"profile tp={tp}: a standalone kv_append launch in the steady step")
+          f"{tag}: a standalone kv_append launch in the steady step")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
+    if not cfg.moe or tp != 1:
+        return
+    moe = eng.params.blocks[0].moe
+    for C in (1, 16):
+        h = torch.randn((8, C, cfg.d_model), device="cuda").to(torch.bfloat16)
+        layer = device_rows(lambda: moe_apply(cfg, h, moe, dropless=True), 10)
+        total = sum(r[0] for r in layer)
+        gemm = sum(r[0] for r in layer
+                   if any(g in r[2] for g in GEMM_NAMES))
+        rows_ = 8 * cfg.n_experts * C * cfg.top_k
+        flops = 2 * 3 * rows_ * cfg.d_model * cfg.d_ff
+        log(f"{tag}: expert layer at C={C} (8 rows, dropless capacity "
+            f"{C * cfg.top_k} a row and expert): {total:.3f} ms a layer, "
+            f"{cfg.n_layers * total:.3f} ms a step"
+            + (f" ({100 * cfg.n_layers * total / busy:.1f}% of the steady "
+               f"step's device time)" if C == 1 else "")
+            + f"; matrix products {gemm:.3f} ms ({100 * gemm / total:.1f}%), "
+            f"{flops / 1e9:.1f} GFLOP of padded expert products a layer "
+            f"({flops / gemm / 1e9:.1f} TFLOP/s)")
+        for ms, count, key in sorted(layer, reverse=True)[:6]:
+            log(f"  {ms:8.3f} ms/layer  {count:4.0f}/layer  {key[:90]}")
 
 
 def sass_check():
@@ -1541,6 +1929,69 @@ def sass_check():
           "every instantiation must load through cp.async (LDGSTS)")
 
 
+def tp_phase(results, name, arch, record=False):
+    """Full-width ``arch`` served four times (float32 and bf16 weights, each
+    at TP=1 and at ``tensor_parallel=TP`` on this card; module docstring,
+    phase 4), then held across runs.  float32 TP=2 against TP=1: the tokens
+    must be equal, and the K/V of every position written within 2e-2 +
+    2e-2|x| — for MoE, wherever no router flip reaches
+    (:func:`routing_check`).  bf16: TP=2's K/V must stay within 1.25x of
+    TP=1's distance from float32, at the positions where both still feed
+    the model float32's tokens.  With ``record`` the bf16 TP=1 run gives
+    kernels 1 and 2 and the fused launch their ``launches``, the bf16 TP=2
+    run kernel 3's."""
+    from repro_torch.configs import get_config
+
+    moe = get_config(arch).moe
+    f32 = engine_phase(results, name, dtype="float32", arch=arch, routes=moe)
+    f32_tp = engine_phase(results, name, tp=TP, dtype="float32", arch=arch,
+                          routes=moe)
+    one = engine_phase(results, name, arch=arch, record=(
+        ("paged_attention", "kv_append", "paged_attention_append")
+        if record else ()))
+    tp = engine_phase(results, name, tp=TP, arch=arch, record=(
+        ("paged_attention_sharded",) if record else ()))
+    tag = tp[2]
+    # in float32 the two reductions round ~1e-7 apart and the arena's bf16
+    # rounding turns that into a K/V element one bf16 step apart now and
+    # then; random weights meet near ties
+    full = [kv["k"].shape[1] - plen for kv, plen in zip(f32[1], f32[3])]
+    agree = first_divergence(f32_tp, f32)
+    log(f"{tag}: float32 TP={TP} tokens equal TP=1's before each request's "
+        f"first difference: {sum(agree)} of {sum(map(len, f32[0]))} (at "
+        f"{agree})")
+    check(f32_tp[0] == f32[0], f"{tag} float32: TP={TP} tokens differ from "
+          f"TP=1's (equal before divergences: {agree})")
+    dist = kv_distance(f32_tp, f32, full)
+    if moe:
+        # such a one-bf16-step difference moves a router's k-th choice
+        # where its k-th and (k+1)-th probabilities nearly tie (ROADMAP C)
+        routing_check(f32_tp, f32)
+    else:
+        check(all(b == 0 for _, b, _ in dist.values()),
+              f"{tag} float32: TP={TP} K/V differ from TP=1's beyond "
+              f"tolerance: {dist}")
+    # in bf16 the row-parallel partials round apart, and greedy decoding
+    # over random weights meets near ties, so tokens are counted, not held;
+    # what is held is that TP=2 stays as close to float32 as TP=1 does, in
+    # prefill and in decode, at the positions where both still feed the
+    # model float32's tokens
+    depth = [min(a, b, n) for a, b, n in zip(first_divergence(one, f32),
+                                              first_divergence(tp, f32), full)]
+    check(sum(depth) > 0, f"{tag} bf16: no generated position of TP=1 and "
+          f"TP={TP} shares float32's tokens")
+    d_one, d_tp = kv_distance(one, f32, depth), kv_distance(tp, f32, depth)
+    same = first_divergence(tp, one)
+    log(f"{tag}: {sum(same)} of {sum(map(len, one[0]))} bf16 tokens equal "
+        f"TP=1's before each request's first divergence (at {same})")
+    for part in ("prompt", "decode"):
+        e1, e2 = d_one[part][0], d_tp[part][0]
+        check(e2 <= 1.25 * e1, f"{tag}: bf16 TP={TP} {part} K/V are {e2:.4g} "
+              f"from float32 against TP=1's {e1:.4g} (limit 1.25x)")
+        log(f"{tag}: bf16 {part} K/V {e2:.4g} from float32 against TP=1's "
+            f"{e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
+
+
 def main() -> int:
     import torch
 
@@ -1572,44 +2023,17 @@ def main() -> int:
     results = {}
     kernel_phase(results)
     parity_phase()
-    # float32 weights first: the yardstick the bf16 phases are held to
-    f32 = engine_phase(results, name, dtype="float32")
-    f32_tp = engine_phase(results, name, tp=TP, dtype="float32")
-    one = engine_phase(results, name)  # the main path, TP=1 ...
-    tp = engine_phase(results, name, tp=TP)  # ... and TP=2
-    # in float32 the two reductions round ~1e-7 apart: TP=2 is TP=1, in
-    # tokens and in the K/V of every position written
-    full = [kv["k"].shape[1] - plen for kv, plen in zip(f32[1], f32[3])]
-    dist = kv_distance(f32_tp, f32, full)
-    check(f32_tp[0] == f32[0] and all(b == 0 for _, b, _ in dist.values()),
-          f"float32: TP={TP} differs from TP=1 (tokens equal before "
-          f"divergences: {first_divergence(f32_tp, f32)}, K/V beyond "
-          f"tolerance: {dist})")
-    # in bf16 the row-parallel partials round apart, and greedy decoding
-    # over random weights meets near ties, so tokens are counted, not held;
-    # what is held is that TP=2 stays as close to float32 as TP=1 does, in
-    # prefill and in decode, at the positions where both still feed the
-    # model float32's tokens
-    depth = [min(a, b, n) for a, b, n in zip(first_divergence(one, f32),
-                                              first_divergence(tp, f32), full)]
-    check(sum(depth) > 0, "bf16: no generated position of TP=1 and TP="
-          f"{TP} shares float32's tokens")
-    d_one, d_tp = kv_distance(one, f32, depth), kv_distance(tp, f32, depth)
-    same = first_divergence(tp, one)
-    log(f"engine tp={TP}: {sum(same)} of {sum(map(len, one[0]))} bf16 "
-        f"tokens equal TP=1's before each request's first divergence "
-        f"(at {same})")
-    for part in ("prompt", "decode"):
-        e1, e2 = d_one[part][0], d_tp[part][0]
-        check(e2 <= 1.25 * e1, f"bf16 TP={TP} {part} K/V are {e2:.4g} from "
-              f"float32 against TP=1's {e1:.4g} (limit 1.25x)")
-        log(f"engine tp={TP}: bf16 {part} K/V {e2:.4g} from float32 against "
-            f"TP=1's {e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
-    del f32, f32_tp, one, tp
+    tp_phase(results, name, "olmo-1b")
+    # the MoE main path: its bf16 runs give the kernels line its launch
+    # counts (paligemma's are in its own log lines)
+    tp_phase(results, name, "olmoe-1b-7b", record=True)
+    tp_phase(results, name, "paligemma-3b")
     walls = fleet_phase(name)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)
+        profile_phase(name, arch="olmoe-1b-7b")
+        profile_phase(name, tp=TP, arch="paligemma-3b")
         profile_fleet(name, walls)
 
     kernels = [results["paged_attention"], results["kv_append"],

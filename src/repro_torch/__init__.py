@@ -19,8 +19,11 @@ Module map (port -> JAX counterpart):
 ``core/pagepool.py``                    ``repro/core/pagepool.py``
 ``models/layers.py``                    ``repro/models/layers.py`` (dense
                                         subset: norms, RoPE, QKV, MLPs)
+``models/moe.py``                       ``repro/models/moe.py`` (forward:
+                                        routing, capacity, dropless)
 ``models/transformer.py``               ``repro/models/transformer.py``
-                                        (embed/unembed, ``DecoderLM``)
+                                        (embed/unembed, ``DecoderLM``:
+                                        dense, MoE, the VLM's decoder)
 ``convert.py``                          the weight bridge from the JAX pytree
 ``kernels/ref.py``                      ``repro/kernels/ref.py``
 ``kernels/ops.py``                      ``repro/kernels/ops.py`` (dispatch by
@@ -43,7 +46,9 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``launch/serve.py``                     ``repro/launch/serve.py`` (plus
                                         ``--device``)
 ``sharding/rules.py``                   ``repro/sharding/rules.py`` (serving
-                                        TP subset: weights, paged arena)
+                                        TP subset: weights, experts'
+                                        hidden axis, paged arena split or
+                                        replicated)
 ``serving/paged_decode.py``             ``repro/serving/paged_decode.py``
 ``serving/kv_manager.py``               ``repro/serving/kv_manager.py``
 ``serving/runner.py``                   ``repro/serving/runner.py``
@@ -61,10 +66,11 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``Request.pages``, which reads a CPU or CUDA block table);
 ``tests/test_torch_engine.py`` pins that.
 
-Not yet ported: the replicated KV arena for head counts the
-tensor-parallel degree does not divide; MoE, VLM, SSM, hybrid and
-encoder-decoder families; training (``models/model.py``, ``optim/``,
-``data/``, ``checkpoint/``); ``launch/*`` apart from
+Not yet ported: the reference's other MoE layouts (``REPRO_MOE_SHARD`` =
+``ep``, ``data``, ``none``); the non-paged decoder paths
+(``decoder_forward``, ``decoder_prefill``, the VLM's image prefix); the
+SSM, hybrid and encoder-decoder families; training (``models/model.py``,
+``optim/``, ``data/``, ``checkpoint/``); ``launch/*`` apart from
 ``make_serving_mesh`` and ``serve.py``; the host arena and lock-free
 reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
 """

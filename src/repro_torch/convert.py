@@ -4,7 +4,9 @@ The reference's ``init_decoder_lm`` returns nested dicts whose ``blocks``
 entry holds every per-layer leaf stacked on a leading L axis.  Handed over
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
 :func:`params_from_jax` splits ``blocks`` into L per-layer dicts and casts
-every leaf through float32 to ``dtype`` on ``device``.  The float32 step
+every leaf through float32 to ``dtype`` on ``device``, except the MoE
+router ``w_router``, which stays float32 as the reference keeps it
+whatever the model's dtype.  The float32 step
 is exact for bf16 leaves (``np.asarray(x, np.float32)`` reads ml_dtypes
 bfloat16 arrays without importing ml_dtypes), so a bf16 -> bf16 bridge is
 bit-exact.  Nothing here imports jax.
@@ -19,6 +21,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import DecoderLM
 
 
+#: leaves kept float32 whatever the model's dtype
+FLOAT32_LEAVES = frozenset({"w_router"})
+
+
 def _leaf(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(
         dtype=dtype, device=device)
@@ -26,7 +32,8 @@ def _leaf(x, dtype, device) -> torch.Tensor:
 
 def _tree(d, dtype, device):
     return {k: _tree(v, dtype, device) if isinstance(v, dict)
-            else _leaf(v, dtype, device) for k, v in d.items()}
+            else _leaf(v, torch.float32 if k in FLOAT32_LEAVES else dtype,
+                       device) for k, v in d.items()}
 
 
 def _layer(d, i):

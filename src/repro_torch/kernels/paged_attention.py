@@ -23,9 +23,10 @@ followed by :func:`paged_attention_plain`.
 
 :func:`paged_attention_sharded` is the port of the TPU kernel
 ``paged_attention_sharded`` (tensor parallelism): this kernel launched once
-per shard on the shard's slab of KV heads, with the fused append when it
-is given one; its plain version :func:`paged_attention_sharded_plain` runs
-the plain versions per shard.
+per shard on the shard's slab of KV heads — or, over a replicated
+multi-query arena, on the shard's query slab and its own copy of the one
+KV head — with the fused append when it is given one; its plain version
+:func:`paged_attention_sharded_plain` runs the plain versions per shard.
 """
 
 from __future__ import annotations
@@ -292,8 +293,10 @@ def paged_attention_sharded(qs, ks, vs, block_tables, lengths, chunk_lens, *,
     qs: per-shard q slabs [B, C, Hq/T, D]; ks/vs: per-shard arena slabs
     [P, page, Hkv/T, D], shard s's on ``mesh.devices[s]``; block_tables,
     lengths and chunk_lens: one tensor (copied to each shard's device
-    without a host sync) or one per shard.  ``n_kv_heads`` is the GLOBAL
-    count; T must divide it.  ``append`` = (k_news, v_news, write_ok):
+    without a host sync) or one per shard.  ``n_kv_heads`` counts the
+    slabs' heads together and T must divide it; over a replicated
+    multi-query arena (each ks/vs entry a whole one-head copy) it is T.
+    ``append`` = (k_news, v_news, write_ok):
     per-shard new K/V slabs [B, C, Hkv/T, D] and one write_ok (or one per
     shard) — each shard's launch then appends to its own slab
     (:func:`paged_attention_append_cuda`).  Returns the T per-shard

@@ -6,9 +6,10 @@ pass ``--device cpu``).  ``--device cuda`` serves on every card, ``cuda:0``
 … ``cuda:n-1``, and ``--tp`` × ``--replicas`` must fit in that count; a
 named device (``cuda:0``, ``cpu``) holds every shard and replica, as
 ``devices=["cuda:0"] * 4`` lays a 2D fleet out on one card.  The weights
-are seeded ``init_decoder_lm`` parameters on the first device.  Dense
-decoder LMs only: a ``moe`` or ``vlm`` family raises
-``NotImplementedError`` (ROADMAP A.6).
+are seeded ``init_decoder_lm`` parameters on the first device.  Decoder
+LMs: the ``dense``, ``moe`` and ``vlm`` families (a VLM serves its text
+decoder); any other family raises ``ValueError``, as the reference's
+serving demo refuses it.
 
 Synthesizes a batch of requests against a (reduced, by default) model and
 reports throughput plus the OA counters — preemptions, reader restarts,
@@ -54,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.models.transformer import init_decoder_lm
+from repro_torch.models.transformer import DECODER_FAMILIES, init_decoder_lm
 from repro_torch.serving import (DEFAULT_CLASSES, DataParallelEngine,
                                  PagedServingEngine, load_trace,
                                  replay_arrivals, required_pages_per_seq)
@@ -214,12 +215,11 @@ def main(argv: list[str] | None = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.family in ("moe", "vlm") or cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoder LMs; the "
-            f"{cfg.family} family is not ported yet (ROADMAP A.6)")
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: serving demo: decoder LMs")
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: serving demo: decoder LMs "
+            f"({', '.join(DECODER_FAMILIES)}); the {cfg.family} family has no "
+            f"paged serving path (its model ports under ROADMAP A.6b)")
     params = init_decoder_lm(cfg, seed=args.seed, device=devices[0])
 
     rng = np.random.default_rng(args.seed)

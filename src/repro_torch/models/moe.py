@@ -1,0 +1,135 @@
+"""Token-choice top-k Mixture of Experts with capacity-bounded dispatch.
+
+The port of ``repro.models.moe`` (forward only: this slice serves).  The
+same function: a float32 router, top-k gates renormalised to sum to 1,
+each assignment's slot within its expert counted per batch row in
+(token, choice) order, assignments past an expert's capacity C dropped,
+a swiglu FFN per expert over its C slots, and the kept outputs gathered
+back and summed under their gates.  The sequence is processed in groups
+of ``MOE_SEQ_CHUNK`` tokens when it is longer than one group and a
+multiple of it (the reference's ``lax.scan``; here a Python loop).
+
+Capacity (:func:`moe_capacity`) is ``ceil(group·k·cf / E)`` when training
+and ``group·k`` with ``dropless=True``, which every serving path passes:
+no assignment is ever dropped, so one-token decode, chunked prefill and
+speculative verification compute the same per-token function.
+
+Layout.  The reference scatters into a ``[B, E, C, d]`` buffer and runs
+three einsums batched over experts; here the buffer is ``[E, B·C, d]``
+with one trash row after it, so each expert's product is one ``bmm``
+slice and a dropped assignment is written to the trash row instead of
+relying on an out-of-range scatter being dropped (on CUDA an out-of-range
+index is a device-side assert).  The gather back clamps the dropped slot
+to C − 1 and multiplies by 0, as the reference's clamped gather does.
+
+Everything here is a plain tensor op on the caller's device with no host
+read: no ``.item()``, no boolean-mask indexing, no ``nonzero``.  Ties in
+the top-k are broken by the lower expert index, as ``jax.lax.top_k``
+breaks them (a stable descending sort).  The expert products are plain
+batched matrix products (``torch.bmm``), as the reference leaves its
+einsums to XLA: this is not one of the repo's Pallas kernels.
+
+Parameters (per layer): ``w_router`` [d, E] float32 whatever the model's
+dtype; ``w_gate``/``w_up`` [E, d, ff] and ``w_down`` [E, ff, d] in the
+model's dtype.  Under tensor parallelism each shard holds an expert-hidden
+slice (``sharding/rules.py``) and :func:`moe_apply` over it gives that
+shard's partial output; the partials sum to the whole layer's output.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _normal
+
+MOE_SEQ_CHUNK = 512
+
+
+def moe_capacity(cfg, group_len: int, dropless: bool = False) -> int:
+    """Slots per expert and batch row for a group of ``group_len`` tokens."""
+    if dropless:  # worst case: every assignment routed to one expert
+        return group_len * cfg.top_k
+    return max(1, int(math.ceil(
+        group_len * cfg.top_k * cfg.capacity_factor / cfg.n_experts)))
+
+
+def init_moe(cfg, gen, dtype=torch.bfloat16, device=None):
+    """Seeded expert weights with the reference's shapes and scales; the
+    router stays float32."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    std_in, std_out = 0.02, 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "w_router": _normal(gen, (d, E), std_in, torch.float32, device),
+        "w_gate": _normal(gen, (E, d, ff), std_in, dtype, device),
+        "w_up": _normal(gen, (E, d, ff), std_in, dtype, device),
+        "w_down": _normal(gen, (E, ff, d), std_out, dtype, device),
+    }
+
+
+def _route(cfg, x, w_router):
+    """Router over x [B, S, d] in float32 -> (probs [B, S, E], gate and
+    expert [B, S, k]), ties to the lower expert index."""
+    logits = x.float() @ w_router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[..., :cfg.top_k], expert[..., :cfg.top_k]
+    return probs, gate / gate.sum(-1, keepdim=True), expert
+
+
+def _moe_group(cfg, x, p, dropless: bool = False):
+    """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 [])."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S, dropless=dropless)
+    probs, gate, expert = _route(cfg, x, p["w_router"])
+
+    # load-balancing aux loss (Switch/Mixtral style)
+    experts = torch.arange(E, device=x.device)
+    onehot = (expert.reshape(B, S * k)[..., None] == experts).to(torch.int32)
+    ce = onehot.float().sum(dim=1).mean(dim=0) / (S * k)
+    aux = E * torch.sum(probs.mean(dim=(0, 1)) * ce)
+
+    # each assignment's slot within its expert, per batch row, in
+    # (token, choice) order; slots past the capacity are dropped
+    flat_e = expert.reshape(B, S * k)
+    pos_in_e = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                            flat_e[..., None])[..., 0] - 1  # [B, S*k]
+    keep = pos_in_e < C
+    rows = torch.arange(B, device=x.device)[:, None]
+    trash = E * B * C
+    dest = torch.where(keep, (flat_e * B + rows) * C + pos_in_e, trash)
+
+    # dispatch: every kept assignment to its own row of [E, B*C, d] (rows no
+    # assignment takes stay 0); dropped ones to the trash row
+    src = x[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
+    buf = x.new_zeros((trash + 1, d))
+    buf.index_copy_(0, dest.reshape(-1), src)
+    eb = buf[:trash].view(E, B * C, d)
+
+    # expert FFN (swiglu), one batched product per weight
+    h = F.silu(torch.bmm(eb, p["w_gate"])) * torch.bmm(eb, p["w_up"])
+    out = torch.bmm(h, p["w_down"]).reshape(E * B * C, d)
+
+    # gather back (the dropped slot clamped to C - 1, then zeroed) and
+    # combine under the gates
+    src_row = (flat_e * B + rows) * C + torch.clamp(pos_in_e, max=C - 1)
+    gath = out[src_row.reshape(-1)].reshape(B, S * k, d)
+    gath = gath * keep[..., None].to(gath.dtype)
+    gath = gath * gate.reshape(B, S * k, 1).to(gath.dtype)
+    return gath.reshape(B, S, k, d).sum(dim=2), aux
+
+
+def moe_apply(cfg, x, p, group: int = MOE_SEQ_CHUNK, dropless: bool = False):
+    """x [B, S, d] -> (y [B, S, d], aux float32 []) over groups of ``group``
+    tokens (one group when S <= group or group does not divide S; the aux
+    loss is then the groups' mean).  ``dropless=True`` sizes capacity so no
+    assignment is dropped: every inference path passes it."""
+    B, S, d = x.shape
+    if S <= group or S % group != 0:
+        return _moe_group(cfg, x, p, dropless=dropless)
+    ys, auxs = zip(*(_moe_group(cfg, x[:, i:i + group], p, dropless=dropless)
+                     for i in range(0, S, group)))
+    return torch.cat(ys, dim=1), torch.stack(auxs).mean()

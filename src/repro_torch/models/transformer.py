@@ -1,6 +1,8 @@
 """Decoder-LM assembly: embedding, unembedding, blocks, and the module.
 
-The port of the dense decoder-LM part of ``repro.models.transformer``.  The
+The port of the decoder-LM part of ``repro.models.transformer`` (dense,
+MoE and the prefix-VLM's text decoder: the paged serving path reads no
+image patches, as the reference's does not).  The
 JAX package keeps parameters as a pytree with the blocks stacked on a
 leading L axis and scans over them; here the model is an ``nn.Module``
 whose blocks sit in a ``ModuleList`` (one Python loop over layers), and
@@ -18,6 +20,10 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from .layers import _normal, init_attention, init_mlp, init_norm
+from .moe import init_moe
+
+#: the decoder-LM families the port serves (the reference's paged step's)
+DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 # ===========================================================================
 # Embedding / unembedding
@@ -50,19 +56,23 @@ def unembed(cfg, model, x):
 
 
 # ===========================================================================
-# Decoder-LM family (dense)
+# Decoder-LM family (dense / MoE / prefix-VLM)
 
 
 def init_decoder_block(cfg, gen, dtype=torch.bfloat16, device=None):
-    """One block's parameters as nested dicts (ln1, attn, ln2, mlp)."""
-    if cfg.moe:
-        raise NotImplementedError("the port serves dense decoder LMs only")
-    return {
+    """One block's parameters as nested dicts: ln1, attn, ln2, and ``moe``
+    in place of ``mlp`` for an MoE config."""
+    p = {
         "ln1": init_norm(cfg, cfg.d_model, dtype, device),
         "attn": init_attention(cfg, gen, dtype, device),
         "ln2": init_norm(cfg, cfg.d_model, dtype, device),
-        "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, device=device),
     }
+    if cfg.moe:
+        p["moe"] = init_moe(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype,
+                            device=device)
+    return p
 
 
 def init_decoder_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
@@ -101,26 +111,29 @@ def _pdict(d: dict) -> nn.ParameterDict:
 
 
 class DecoderBlock(nn.Module):
-    """One pre-norm decoder block's parameters: ln1, attn, ln2, mlp."""
+    """One pre-norm decoder block's parameters: ln1, attn, ln2, and mlp or
+    (MoE) moe; :attr:`groups` names the ones it holds."""
 
     def __init__(self, p: dict):
         super().__init__()
-        self.ln1 = _pdict(p["ln1"])
-        self.attn = _pdict(p["attn"])
-        self.ln2 = _pdict(p["ln2"])
-        self.mlp = _pdict(p["mlp"])
+        self.groups = tuple(g for g in ("ln1", "attn", "ln2", "mlp", "moe")
+                            if g in p)
+        for g in self.groups:
+            setattr(self, g, _pdict(p[g]))
 
 
 class DecoderLM(nn.Module):
-    """A dense decoder LM's parameters (see module docstring).  The serving
+    """A decoder LM's parameters (see module docstring).  The serving
     step (``serving/paged_decode.py``) runs the math over these; the module
     holds no behaviour of its own beyond placement."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe:
+        if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense decoder LMs only")
+                f"{cfg.name}: the port serves decoder LMs "
+                f"({', '.join(DECODER_FAMILIES)}); the {cfg.family} family "
+                f"is not ported (ROADMAP A.6b)")
         self.cfg = cfg
         self.embed = _pdict(params["embed"])
         self.blocks = nn.ModuleList(DecoderBlock(b) for b in params["blocks"])
@@ -148,8 +161,7 @@ class DecoderLM(nn.Module):
     def tree(self) -> dict:
         """The parameters as the nested dicts the module is built from."""
         out = {"embed": dict(self.embed),
-               "blocks": [{n: dict(getattr(b, n))
-                           for n in ("ln1", "attn", "ln2", "mlp")}
+               "blocks": [{n: dict(getattr(b, n)) for n in b.groups}
                           for b in self.blocks],
                "final_norm": dict(self.final_norm)}
         if self.lm_head is not None:

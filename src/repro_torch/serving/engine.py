@@ -5,8 +5,8 @@ with ``device=`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
 ``tensor_parallel=T, devices=[...]`` serves on T shards
 (``launch/mesh.py``): the engine splits the full parameters it is given by
 ``sharding/rules.py``, keeps one contiguous KV slab of Hkv/T heads per
-shard (a head count T does not divide is a ``ValueError``: the reference's
-replicated arena is not ported), and keeps the pool and per-slot state
+shard (where T does not divide Hkv, a whole copy of the arena per shard:
+the reference's replicated layout), and keeps the pool and per-slot state
 once on the first device (the reference replicates them over its mesh).
 Wiring and delegation over three layers with explicit contracts:
 
@@ -34,7 +34,7 @@ from repro_torch.core.vm import ReleaseStrategy
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.sharding.rules import param_shards
+from repro_torch.sharding.rules import kv_split, param_shards
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
 from .runner import ModelRunner
@@ -138,7 +138,8 @@ class PagedServingEngine:
             max_batch=max_batch,
             max_pages_per_seq=max_pages_per_seq or num_pages,
             page_size=page_size, stats=self.stats, device=self.device,
-            mesh=self.mesh)
+            mesh=self.mesh, kv_replicated=(
+                self.mesh is not None and not kv_split(cfg, self.mesh.tp)))
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,

@@ -5,7 +5,8 @@ over the port's tensors.  The per-slot device arrays are updated in place
 by plain tensor writes where the reference runs donated jitted installs.
 Under tensor parallelism (``mesh=``) the per-slot arrays live once, on the
 mesh's lead device (the reference replicates them), and ``kv`` is the list
-of per-shard arena slabs; :meth:`KVCacheManager.gather_kv` joins them.
+of per-shard arena slabs (or whole copies, where the mesh does not divide
+the KV heads); :meth:`KVCacheManager.gather_kv` joins them.
 
 The middle layer of the serving stack (ARCHITECTURE.md):
 
@@ -77,7 +78,7 @@ class KVCacheManager:
 
     def __init__(self, allocator: Allocator, *, kv, max_batch: int,
                  max_pages_per_seq: int, page_size: int, stats: EngineStats,
-                 device=None, mesh=None):
+                 device=None, mesh=None, kv_replicated: bool = False):
         self.allocator = allocator
         self.kv = kv
         self.stats = stats
@@ -85,6 +86,8 @@ class KVCacheManager:
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
         self.mesh = mesh
+        #: under a mesh: every shard holds a whole copy of the arena
+        self.kv_replicated = kv_replicated
         self.device = mesh.lead if mesh is not None else resolve_device(device)
         B, M = max_batch, max_pages_per_seq
         dev = self.device
@@ -118,9 +121,11 @@ class KVCacheManager:
         """The whole arena {'k','v': [L, P, page, Hkv, D]} on the lead
         device: the shards' slabs joined on the KV-head axis (tests and the
         smoke script; never on the serving path).  Without a mesh, the
-        arena itself."""
+        arena itself; over a replicated arena, the lead shard's copy."""
         if self.mesh is None:
             return self.kv
+        if self.kv_replicated:
+            return {n: self.kv[0][n] for n in ("k", "v")}
         return {n: torch.cat([s[n].to(self.device) for s in self.kv], dim=3)
                 for n in ("k", "v")}
 

@@ -1,8 +1,12 @@
-"""Paged decode + chunked-prefill step for dense decoder LMs (PyTorch).
+"""Paged decode + chunked-prefill step for decoder LMs (PyTorch): dense,
+MoE and the VLM's text decoder.
 
 The port of ``repro.serving.paged_decode``: the same math, with the KV
 cache in the versioned page pool — storage [L, P, page, Hkv, D], one block
-table per sequence shared by all layers.
+table per sequence shared by all layers.  An MoE block runs the dropless
+expert layer (``models/moe.py``, capacity ``C = S·k``) where a dense block
+runs its MLP; the paged step, like the reference's, applies no sliding
+window and reads no VLM image patches.
 
 - ``paged_decode_step``: the bare model math — (logits, kv).
 - ``fused_decode_step``: the serving hot path.  Page growth (one batched
@@ -14,16 +18,20 @@ table per sequence shared by all layers.
 
 Tensor parallelism (``mesh=``, a :class:`repro_torch.launch.mesh.ServingMesh`
 of T shard devices): the KV arena is one contiguous ``[L, P, page, Hkv/T,
-D]`` slab per shard and the model one ``DecoderLM`` of weight slices per
-shard (``sharding/rules.py``).  The pool, the grant, COW planning, token
-routing, selection and OA validation run once, on the lead device — the
-reference replicates them and every shard computes the same values, so one
-copy is the same single logical pool.  Per layer each shard projects its
-q/k/v heads, appends to its own slab and attends on its heads (one launch
-of the sharded kernel per shard, the append fused in), and multiplies by
-its rows of ``wo``; the partial outputs are summed into the residual on
-the lead device (the reference's ``psum``), and the MLP does the same with
-its ``w_gate``/``w_up`` columns and ``w_down`` rows.
+D]`` slab per shard — or, where T does not divide Hkv (multi-query
+attention), one whole ``[L, P, page, Hkv, D]`` copy per shard, the
+reference's replicated layout: every shard computes the same K/V and
+appends them to its own copy — and the model one ``DecoderLM`` of weight
+slices per shard (``sharding/rules.py``).  The pool, the grant, COW
+planning, token routing, selection and OA validation run once, on the lead
+device — the reference replicates them and every shard computes the same
+values, so one copy is the same single logical pool.  Per layer each shard
+projects its q/k/v heads, appends to its own slab and attends on its heads
+(one launch of the sharded kernel per shard, the append fused in), and
+multiplies by its rows of ``wo``; the partial outputs are summed into the
+residual on the lead device (the reference's ``psum``), and the MLP does
+the same with its ``w_gate``/``w_up`` columns and ``w_down`` rows, the MoE
+layer with each expert's hidden slice.
 
 Where the JAX step donates its state, this one updates it IN PLACE: the KV
 arena (the attention launch's fused append and the COW copy write into
@@ -49,9 +57,12 @@ from repro_torch.core import pagepool as pp
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import paged_attention, speculative_accept
 from repro_torch.models.layers import apply_norm, attention_qkv, mlp_apply
-from repro_torch.models.transformer import embed_tokens, unembed
+from repro_torch.models.moe import moe_apply
+from repro_torch.models.transformer import (DECODER_FAMILIES, embed_tokens,
+                                            unembed)
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.sharding.rules import (ROW_BIASES, lm_head_split, mlp_split,
+from repro_torch.sharding.rules import (ROW_BIASES, check_heads, kv_split,
+                                        lm_head_split, mlp_split, moe_split,
                                         paged_kv_axis)
 
 
@@ -62,20 +73,19 @@ def kv_storage_init(cfg, num_pages: int, page_size: int,
 
     With ``mesh``: a list of T contiguous slabs [L, P, page, Hkv/T, D], shard
     s's holding KV heads ``[s·Hkv/T, (s+1)·Hkv/T)`` of every page on
-    ``mesh.devices[s]`` (``sharding.rules.paged_kv_axis``).  A head count T
-    does not divide raises ``ValueError``: the reference's replicated-arena
-    layout for that case is not ported."""
+    ``mesh.devices[s]`` (``sharding.rules.paged_kv_axis``); where T does not
+    divide Hkv, T whole [L, P, page, Hkv, D] copies, one per shard (the
+    reference's replicated layout).  Heads the mesh cannot serve raise
+    ``ValueError`` (``sharding.rules.check_heads``)."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     if mesh is None:
         dev = resolve_device(device)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    if paged_kv_axis(shape, mesh.tp) is None:
-        raise ValueError(
-            f"n_kv_heads={cfg.n_kv_heads} is not divisible by tensor_parallel="
-            f"{mesh.tp}: the replicated KV arena the reference falls back to "
-            f"is not ported yet")
-    local = shape[:3] + (cfg.n_kv_heads // mesh.tp, cfg.head_dim)
+    check_heads(cfg, mesh.tp)
+    local = shape
+    if paged_kv_axis(shape, mesh.tp) is not None:
+        local = shape[:3] + (cfg.n_kv_heads // mesh.tp, cfg.head_dim)
     return [{"k": torch.zeros(local, dtype=dtype, device=d),
              "v": torch.zeros(local, dtype=dtype, device=d)}
             for d in mesh.devices]
@@ -90,11 +100,12 @@ def max_chunk_pages(chunk_size: int, page_size: int) -> int:
 
 @functools.cache
 def _local_cfg(cfg, tp: int):
-    """The config one of ``tp`` shards computes its heads with."""
+    """The config one of ``tp`` shards computes its heads with: its query
+    heads, and its KV heads (all of them where the arena is replicated)."""
     if tp == 1:
         return cfg
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=cfg.n_kv_heads // tp)
+    hkv = cfg.n_kv_heads // tp if kv_split(cfg, tp) else cfg.n_kv_heads
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=hkv)
 
 
 def _layout(model, kv, mesh, dev):
@@ -121,6 +132,27 @@ def _mlp_partial(cfg, h, p):
                               if k not in ROW_BIASES})
 
 
+def _ffn(cfg, shards, mesh, h, dev):
+    """The block's feed-forward output on ``dev``: the shards' MLP or
+    (MoE) dropless expert-layer partials summed (each shard's hidden
+    slice; one shard's whole output where the weights are not split), the
+    row-parallel biases added once after the sum."""
+    devs = mesh.devices
+    if cfg.moe:
+        # dropless: the serving path computes the same per-token function
+        # whatever the chunk width (decode-parity contract)
+        n = mesh.tp if moe_split(cfg, mesh.tp) else 1
+        return _reduce([moe_apply(cfg, h.to(devs[s], non_blocking=True),
+                                  shards[s].moe, dropless=True)[0]
+                        for s in range(n)], dev)
+    n = mesh.tp if mlp_split(cfg, mesh.tp) else 1
+    y = _reduce([_mlp_partial(cfg, h.to(devs[s], non_blocking=True),
+                              shards[s].mlp) for s in range(n)], dev)
+    for name in ROW_BIASES & shards[0].mlp.keys():
+        y = y + shards[0].mlp[name].to(y.dtype)
+    return y
+
+
 def _unembed(cfg, shards, mesh, x):
     """Logits from the lead's tied table or whole ``lm_head``, or the
     shards' ``lm_head`` column slices joined on the vocab axis."""
@@ -144,14 +176,13 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     call (one kernel launch per shard on CUDA).  With ``mesh``, ``model``
     and ``kv`` are the per-shard models and slabs (module docstring).
     Returns (x [B, C, d_model] final-normed, kv)."""
-    if cfg.family != "dense" or cfg.moe:
-        raise NotImplementedError("paged decode: dense decoder LMs only")
+    if cfg.family not in DECODER_FAMILIES:
+        raise NotImplementedError("paged decode: decoder LMs only")
     B, C = tokens.shape
     dev = tokens.device
     shards, kvs, mesh = _layout(model, kv, mesh, dev)
     devs = mesh.devices
     lcfg = _local_cfg(cfg, mesh.tp)
-    mlp_n = mesh.tp if mlp_split(cfg, mesh.tp) else 1
     positions = lengths.to(torch.int64)[:, None] + torch.arange(
         C, device=dev)[None, :]
     x = embed_tokens(cfg, shards[0].embed, tokens.to(torch.int64), positions)
@@ -182,11 +213,7 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
         x = x + _reduce([a.reshape(B, C, -1) @ blk.attn["wo"]
                          for a, blk in zip(atts, blks)], dev)
         h2 = apply_norm(cfg, x, blks[0].ln2)
-        y = _reduce([_mlp_partial(cfg, h2.to(devs[s], non_blocking=True),
-                                  blks[s].mlp) for s in range(mlp_n)], dev)
-        for name in ROW_BIASES & blks[0].mlp.keys():
-            y = y + blks[0].mlp[name].to(y.dtype)
-        x = x + y
+        x = x + _ffn(cfg, blks, mesh, h2, dev)
     return apply_norm(cfg, x, shards[0].final_norm), kv
 
 

@@ -1,2 +1,3 @@
-"""Sharding rules for tensor-parallel serving: how the dense decoder's
-weights and the paged KV arena split over a serving mesh (``rules.py``)."""
+"""Sharding rules for tensor-parallel serving: how a decoder LM's weights
+(dense, MoE and the VLM's text decoder) and the paged KV arena split over a
+serving mesh (``rules.py``)."""

@@ -330,3 +330,113 @@ def test_cuda_fleet_threads_match_cpu_fleet(cuda):
             assert e.stats.warnings_fired == int(e.pool.clock.cpu())
         out.append(([r.generated for r in reqs], st.steps, st.preemptions))
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("C,Hq", [(1, 8), (16, 8), (1, 4), (16, 4)],
+                         ids=["decode_g8", "chunk_g8", "decode_g4", "chunk_g4"])
+@pytest.mark.parametrize("qd,kd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16")])
+def test_cuda_mqa_head_dim_256(cuda, S, C, Hq, qd, kd):
+    """Multi-query attention at head dim 256 (paligemma's decoder: one KV
+    head, 8 query heads at TP=1 and 4 per shard at TP=2; at C=16 with 8
+    query heads, 128 query slots in two groups of 64): kernel 1 against
+    its plain version on the split edge cases, and the fused append bitwise
+    the two-launch pair, arena bit-exact against the plain version."""
+    from repro_torch.kernels.kv_append import kv_append_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_append_plain,
+        paged_attention_cuda, paged_attention_plain)
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(S, 16, C, Hq, 1, 256, seed=S * 5 + C + Hq)]
+    q = q.to(getattr(torch, qd))
+    k, v, kn, vn = (a.to(getattr(torch, kd)) for a in (k, v, kn, vn))
+    tol = 2e-2 if "bfloat16" in (qd, kd) else 1e-4
+    if qd == kd:
+        got = paged_attention_cuda(q, k, v, bt, ln, cl, _splits=S)
+        want = paged_attention_plain(q, k, v, bt, ln, cl)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+    pair, mine, plain = ([k.clone(), v.clone()] for _ in range(3))
+    kv_append_cuda(*pair, kn, vn, bt, ln - cl, cl, ok)
+    want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S)
+    got = paged_attention_append_cuda(q, *mine, kn, vn, bt, ln, cl, ok,
+                                      _splits=S)
+    ref = paged_attention_append_plain(q, *plain, kn, vn, bt, ln, cl, ok)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(mine, pair))
+    assert all(torch.equal(a, b) for a, b in zip(mine, plain))
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sharded_attention_over_a_replicated_mqa_arena(cuda, C, dtype):
+    """Two shards on one card over a replicated one-head arena at head dim
+    256: each shard's launch reads its 4 query heads over its own whole
+    copy (appending the same new K/V to it); the joined output equals one
+    launch over 8 query heads bit for bit, and both copies equal that
+    launch's arena."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_plain,
+        paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(2, 16, C, 8, 1, 256, seed=40 + C)]
+    td = getattr(torch, dtype)
+    q, k, v, kn, vn = (a.to(td) for a in (q, k, v, kn, vn))
+    mesh = make_serving_mesh(2, [cuda, cuda])
+    qs = [t.contiguous() for t in q.chunk(2, dim=2)]
+    copies = [(k.clone(), v.clone()) for _ in range(2)]
+    full = [k.clone(), v.clone()]
+    want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln, cl, ok)
+    before = paged_attention_sharded.launches
+    outs = paged_attention_sharded(
+        qs, [c[0] for c in copies], [c[1] for c in copies], bt, ln, cl,
+        mesh=mesh, n_kv_heads=2, append=([kn, kn], [vn, vn], ok))
+    assert paged_attention_sharded.launches - before == 2
+    assert torch.equal(torch.cat(outs, dim=2), want)
+    for kc, vc in copies:
+        assert torch.equal(kc, full[0]) and torch.equal(vc, full[1])
+    plain = paged_attention_plain(q, *full, bt, ln, cl)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(want.float(), plain.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_tp2_engine_matches_tp1(cuda):
+    """Reduced olmoe-1b-7b and paligemma-3b engines at tensor_parallel=2
+    with both shards on one card generate the TP=1 engine's tokens
+    (float32 weights), and paligemma's two arena copies stay bitwise
+    equal."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+
+    for arch in ("olmoe-1b-7b", "paligemma-3b"):
+        cfg = reduced(get_config(arch))
+        params = init_decoder_lm(cfg, seed=4, dtype=torch.float32,
+                                 device="cpu")
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in rng.integers(3, 14, 5)]
+        out = []
+        for kw in (dict(device=cuda), dict(tensor_parallel=2,
+                                           devices=[cuda, cuda])):
+            eng = PagedServingEngine(cfg, params, num_pages=10, page_size=4,
+                                     max_batch=3, prefill_chunk=8, **kw)
+            reqs = [eng.submit(p, 6) for p in prompts]
+            st = eng.run()
+            assert st.warnings_fired == int(eng.pool.clock.cpu())
+            out.append(([r.generated for r in reqs], st.steps,
+                        st.preemptions))
+        assert out[0] == out[1], arch
+        if cfg.n_kv_heads == 1:
+            assert eng.kv_manager.kv_replicated
+            assert all(torch.equal(eng.kv[0][n], eng.kv[1][n])
+                       for n in ("k", "v"))

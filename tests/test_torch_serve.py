@@ -61,9 +61,24 @@ def test_cuda_default_never_falls_back(monkeypatch):
         main(["--requests", "2", "--device", "cuda:0"])
 
 
-def test_unported_family_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        main(["--arch", "olmoe-1b-7b", "--requests", "2"] + CPU)
+@pytest.mark.parametrize("arch", ["mamba2-780m", "whisper-tiny"])
+def test_unported_family_names_the_roadmap(arch):
+    """A family with no paged serving path (in the reference too) is
+    refused before any model work, naming where its model ports."""
+    with pytest.raises(ValueError, match="decoder LMs.*A.6b"):
+        main(["--arch", arch, "--requests", "2"] + CPU)
+
+
+@pytest.mark.parametrize("arch,tp", [("olmoe-1b-7b", 1), ("olmoe-1b-7b", 2),
+                                     ("paligemma-3b", 2)])
+def test_moe_and_vlm_archs_serve(capsys, arch, tp):
+    """MoE and the VLM's text decoder serve at the reduced size, at TP=1
+    and over two shards (paligemma's one KV head: the replicated arena)."""
+    stats = main(["--arch", arch, "--reduced", "--requests", "3", "--tp",
+                  str(tp)] + TINY + CPU)
+    tag = "[serve]" if tp == 1 else f"[serve x1 tp{tp}]"
+    assert f"{tag} finished 3/3 requests" in capsys.readouterr().out
+    assert stats.tokens_committed > 0
 
 
 def _sched(stats):

@@ -24,7 +24,8 @@ from repro_torch.configs import get_config as tget, reduced as treduced
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import init_decoder_lm
 from repro_torch.serving import kv_storage_init
-from repro_torch.sharding.rules import (lm_head_split, mlp_split, param_shards,
+from repro_torch.sharding.rules import (check_heads, kv_split, lm_head_split,
+                                        mlp_split, moe_split, param_shards,
                                         paged_kv_axis)
 
 torch.set_num_threads(1)
@@ -172,3 +173,82 @@ def test_make_serving_mesh(monkeypatch):
         make_serving_mesh(2)  # the default is cuda:0..cuda:1
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_serving_mesh(2, ["cuda:0", "cuda:0"])
+
+
+def _spec_axes(arch, small, tp):
+    """{(group, name): the axis the reference's serving spec puts on
+    'model'} for one layer's leaves, and the port's shards of the same
+    tree (on the meta device)."""
+    jc, tc = _configs(arch, small)
+    shapes = jax.eval_shape(lambda: jinit(jc, jax.random.PRNGKey(0)))
+    specs = jrules.param_specs(jc, shapes, _FakeMesh({"data": 1, "model": tp}),
+                               serving=True)
+    meta = lambda s: torch.empty(s, device="meta")
+    blk = {g: {n: meta(v.shape[1:]) for n, v in d.items()}
+           for g, d in shapes["blocks"].items()}
+    tree = {"embed": {n: meta(v.shape) for n, v in shapes["embed"].items()},
+            "blocks": [blk], "final_norm": {}}
+    shard = param_shards(dataclasses.replace(tc, n_layers=1), tree,
+                         make_serving_mesh(tp, ["meta"] * tp))[0]
+    want = {}
+    for g, d in specs["blocks"].items():
+        for n, spec in d.items():
+            want[(g, n)] = _model_axis(spec, 1)
+    return tc, shapes, want, shard["blocks"][0]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("small", [False, True], ids=["olmoe-1b-7b", "reduced"])
+def test_moe_param_shards_follow_the_expert_hidden_spec(small, tp):
+    """Under ``moe`` the port cuts exactly what the reference's default
+    ``REPRO_MOE_SHARD=tp`` spec cuts: each expert's hidden axis (w_gate and
+    w_up axis 2, w_down axis 1), the router replicated — and the attention
+    as for a dense block."""
+    tc, shapes, want, blk = _spec_axes("olmoe-1b-7b", small, tp)
+    assert want[("moe", "w_gate")] == want[("moe", "w_up")] == 2
+    assert want[("moe", "w_down")] == 1 and want[("moe", "w_router")] is None
+    for (g, n), ax in want.items():
+        shape = list(shapes["blocks"][g][n].shape[1:])
+        if ax is not None:
+            shape[ax] //= tp
+        assert tuple(blk[g][n].shape) == tuple(shape), (g, n)
+    assert moe_split(tc, tp) and "mlp" not in blk
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "paligemma-3b"])
+@pytest.mark.parametrize("small", [False, True], ids=["full", "reduced"])
+def test_mqa_kv_projections_stay_whole(arch, small):
+    """One KV head over two shards: the arena is replicated
+    (``cache_specs(paged=True)``), and the port keeps ``wk``/``wv`` whole on
+    every shard, where the reference's spec cuts their columns inside the
+    head (GSPMD keeps the global function; the port computes with the
+    slices it holds).  Every other leaf follows the spec."""
+    tc, shapes, want, blk = _spec_axes(arch, small, 2)
+    assert tc.n_kv_heads == 1 and not kv_split(tc, 2)
+    for (g, n), ax in want.items():
+        shape = list(shapes["blocks"][g][n].shape[1:])
+        if n in ("wk", "wv"):
+            assert ax == 1  # the reference's spec cuts inside the one head
+        elif ax is not None:
+            shape[ax] //= 2
+        assert tuple(blk[g][n].shape) == tuple(shape), (g, n)
+    check_heads(tc, 2)  # the query heads split; the one KV head is whole
+
+
+def test_kv_storage_init_replicates_an_arena_the_mesh_does_not_divide():
+    """MQA over two shards: each shard gets a whole [L, P, page, Hkv, D]
+    copy of its own (the reference's replicated layout); a query head
+    count the mesh does not divide, or several KV heads it does not
+    divide, raise."""
+    cfg = treduced(tget("granite-20b"))
+    full = kv_storage_init(cfg, 8, 4, device="cpu")
+    copies = kv_storage_init(cfg, 8, 4, mesh=make_serving_mesh(2, ["cpu"] * 2))
+    assert len(copies) == 2
+    for n in ("k", "v"):
+        assert copies[0][n].shape == full[n].shape == (
+            cfg.n_layers, 8, 4, 1, cfg.head_dim)
+        assert copies[0][n].data_ptr() != copies[1][n].data_ptr()
+    for over, tp in ((dict(n_heads=6), 4), (dict(n_kv_heads=2, n_heads=8), 4)):
+        with pytest.raises(ValueError, match="not divisible"):
+            kv_storage_init(dataclasses.replace(cfg, **over), 8, 4,
+                            mesh=make_serving_mesh(tp, ["cpu"] * tp))
