@@ -39,7 +39,10 @@ run with a nonzero exit and no result line.
    launch over all query heads, timed.
 3. Parity: reduced olmo-1b and olmoe-1b-7b engines on the card against the
    same engines on the CPU (plain versions), float32 weights: generated
-   tokens must agree.
+   tokens must agree.  Reduced whisper-tiny, recurrentgemma-9b and
+   mamba2-780m through ``build_model`` (a 40-token prefill, 8 greedy
+   steps), card against CPU on the same float32 weights: logits within
+   1e-3, tokens equal.
 4. Engines: full-width olmo-1b, olmoe-1b-7b (MoE: 64 experts top-8, the
    dropless expert layer in the fused step, each expert's hidden axis
    split at TP=2) and paligemma-3b (its text decoder: one KV head of 256,
@@ -90,6 +93,22 @@ run with a nonzero exit and no result line.
    through ``launch/serve.py::_replay_trace``: 0 lost, TTFT percentiles
    per class.  (f) The CLI's ``main`` at its reduced size: ``--replicas
    2``, ``--classes --stream``, ``--trace``.
+6. Models (g): the non-paged path, ``build_model`` on the card at full
+   width and depth for olmo-1b (512-token prompts), mamba2-780m (1000, no
+   multiple of its SSD chunk), recurrentgemma-9b (2560: past its 2048
+   window, misaligned with it, the chunked RG-LRU branch) and
+   whisper-tiny (1500 seeded frames, 64 tokens), B=4, seeded weights in
+   float32 then bf16 (the main dtype), each followed by 64 greedy decode
+   steps.  Held in float32: finite logits and states, ``len``, the
+   decoded logits against teacher forcing over the same tokens within
+   3e-2 abs+rel (5e-2 for the ring-windowed recurrentgemma), as the
+   reference's tests allow.  Held in both dtypes: every steady
+   ``decode_step`` (the third on) makes no device->host transfer (sync
+   debug mode "error"), and no kernel of the repository launches (counts
+   set to 0 before, read after).  Printed: prefill ms (cold and warm),
+   decode ms/step, tokens/s and peak memory; bf16's greedy tokens equal
+   to float32's, and olmo-1b bf16's equal to the paged engine's on the
+   same prompts and weights (its arena is bf16: the equal prefix).
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
 sharded kernel 3 and the fused launch; launches from the olmoe-1b-7b bf16
@@ -960,6 +979,21 @@ def parity_phase():
               f"card and CPU disagree on reduced {arch}: {out}")
         log(f"parity: reduced {arch}, 6 requests, card == CPU (tokens, "
             f"{out['cpu'][1]} steps, {out['cpu'][2]} preemptions)")
+    # the non-paged families: build_model's prefill and 8 greedy steps
+    for arch in ("whisper-tiny", "recurrentgemma-9b", "mamba2-780m"):
+        cfg = reduced(get_config(arch))
+        run = {dev: model_run(cfg, 40, torch.float32, dev=dev, steps=8,
+                              seed=3, init_dev="cpu")
+               for dev in ("cpu", "cuda")}
+        err = float((run["cuda"]["logits"].cpu()
+                     - run["cpu"]["logits"]).abs().max())
+        check(torch.allclose(run["cuda"]["logits"].cpu(), run["cpu"]["logits"],
+                             atol=1e-3, rtol=1e-3),
+              f"card and CPU logits of reduced {arch} differ by {err:.3g}")
+        check(torch.equal(run["cuda"]["tokens"], run["cpu"]["tokens"]),
+              f"card and CPU disagree on reduced {arch}'s tokens")
+        log(f"parity: reduced {arch} through build_model, prefill + 8 steps, "
+            f"card == CPU (tokens; logits max abs {err:.3g}, limit 1e-3)")
 
 
 # ---------------------------------------------------------------------------
@@ -1992,6 +2026,197 @@ def tp_phase(results, name, arch, record=False):
             f"{e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
 
 
+# ---------------------------------------------------------------------------
+# phase 6 (g): the non-paged model path, ``build_model`` at full width
+
+#: arch -> prompt tokens: mamba2-780m's 1000 is no multiple of its 128-token
+#: SSD chunk; recurrentgemma-9b's 2560 passes its 2048-token window,
+#: misaligned with it, and is a multiple of 512, so the chunked RG-LRU
+#: branch runs; whisper-tiny also encodes 1500 seeded frames
+MODEL_PROMPTS = {"olmo-1b": 512, "mamba2-780m": 1000,
+                 "recurrentgemma-9b": 2560, "whisper-tiny": 64}
+MODEL_B, MODEL_STEPS = 4, 64
+
+
+def model_batch(cfg, S, dev, seed=0):
+    """Seeded prompts [B, S] int32 (and whisper's frames [B, F, d]) on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (MODEL_B, S)).astype(np.int32)}
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal(
+            (MODEL_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def no_host_reads(dev):
+    """On the card, any synchronising call inside raises (sync debug mode
+    "error")."""
+    import torch
+
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def model_run(cfg, S, dtype, dev="cuda", steps=MODEL_STEPS, seed=0,
+              paged=False, init_dev=None):
+    """One model through ``build_model`` on ``dev``: seeded ``dtype``
+    weights, a prefill of B=4 prompts of S tokens into a cache of S +
+    ``steps`` slots, ``steps`` greedy decode steps (all but the first two
+    under :func:`no_host_reads`), then teacher forcing over the prompts
+    and the fed tokens, unembedding only the decoded positions.  Checks
+    (raising): finite logits and states, ``len``, no kernel launch.
+    Returns the tokens [B, steps + 1], the decoded logits [B, steps + 1,
+    V] (on ``dev``), the teacher-forcing error and the times; with
+    ``paged`` (a decoder LM) also the paged engine's tokens on the same
+    prompts and weights.  The weights are drawn on ``init_dev`` (default
+    ``dev``), so two runs with the same ``init_dev`` share them."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import unembed
+
+    dev = torch.device(dev)
+    gc.collect()  # an earlier run's weights and caches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=seed, dtype=dtype,
+                        device=init_dev or dev).placed(dev)
+    batch = model_batch(cfg, S, dev, seed)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    times = []
+    for _ in range(2):  # cold (first use at these shapes), then warm
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(params, batch, S + steps)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    rows = [logits[:, -1]]
+    toks = [rows[0].argmax(-1).to(torch.int32)]
+    pos = torch.full((MODEL_B,), S, dtype=torch.int32, device=dev)
+    warm = 2
+    for i in range(steps):
+        if i == warm:
+            _sync(dev)
+            t0 = time.perf_counter()
+        with no_host_reads(dev) if i >= warm else contextlib.nullcontext():
+            logits, cache = model.decode_step(params, cache,
+                                              {"token": toks[-1], "pos": pos})
+            toks.append(logits.argmax(-1).to(torch.int32))
+            pos = pos + 1
+        rows.append(logits)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    check(not any(launches.values()),
+          f"{cfg.name}: the non-paged path launched kernels {launches}")
+    dec = torch.stack(rows, dim=1)
+    toks = torch.stack(toks, dim=1)
+    check(bool(torch.isfinite(dec).all()), f"{cfg.name}: non-finite logits")
+    for k, v in cache.items():
+        check(k == "len" or bool(torch.isfinite(v).all()),
+              f"{cfg.name}: non-finite cache {k}")
+    check(bool((cache["len"] == S + steps).all()),
+          f"{cfg.name}: len {cache['len'].tolist()}, want {S + steps}")
+    del cache
+    hidden, _ = model.forward(params, {**batch, "tokens": torch.cat(
+        [batch["tokens"], toks[:, :steps]], dim=1)})
+    tf = unembed(cfg, params, hidden[:, S - 1:]).float()
+    del hidden
+    diff = (dec - tf).abs()
+    out = {"tokens": toks.cpu(), "logits": dec, "init_s": init_s,
+           "prefill_s": times, "decode_s": decode_s,
+           "timed_steps": steps - warm, "tf_max_abs": float(diff.max()),
+           # the least tol with |decode - teacher| <= tol + tol |teacher|
+           "tf_tol": float((diff / (1 + tf.abs())).max()),
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if dev.type == "cuda" else None)}
+    if paged:
+        from repro_torch.serving import PagedServingEngine
+
+        del tf, diff
+        eng = PagedServingEngine(cfg, params, num_pages=256, page_size=16,
+                                 max_batch=MODEL_B, prefill_chunk=16,
+                                 device=dev)
+        reqs = [eng.submit(p, steps + 1) for p in batch["tokens"].tolist()]
+        eng.run()
+        check(all(r.state == "finished" for r in reqs),
+              f"{cfg.name}: a paged request did not finish")
+        out["paged_tokens"] = [list(r.generated) for r in reqs]
+    return out
+
+
+def models_phase(name):
+    """Phase 6 (g): olmo-1b, mamba2-780m, recurrentgemma-9b and
+    whisper-tiny at full width and depth through ``build_model``, float32
+    then bf16 (module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    for arch, S in MODEL_PROMPTS.items():
+        cfg = get_config(arch)
+        # decode against teacher forcing: the reference's tests' bounds
+        # (tests/test_models_smoke.py, tests/test_ring_cache.py)
+        tol = 5e-2 if cfg.family == "hybrid" else 3e-2
+        runs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"models: {arch} {str(dtype)[6:]}"
+            r = model_run(cfg, S, dtype, paged=(
+                arch == "olmo-1b" and dtype == torch.bfloat16))
+            del r["logits"]
+            runs[dtype] = r
+            n = MODEL_B * r["timed_steps"]
+            log(f"{tag}: B={MODEL_B} prompt {S}, {MODEL_STEPS} greedy steps "
+                f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+                f"{cfg.vocab_padded}); init {r['init_s']:.2f} s, prefill "
+                f"{1e3 * r['prefill_s'][0]:.2f} ms cold, "
+                f"{1e3 * r['prefill_s'][1]:.2f} ms warm, decode "
+                f"{1e3 * r['decode_s'] / r['timed_steps']:.3f} ms/step, "
+                f"{n / r['decode_s']:.1f} tokens/s, peak "
+                f"{r['peak_gib']:.2f} GiB allocated, on {name}; decode vs "
+                f"teacher forcing max abs {r['tf_max_abs']:.3g}, abs+rel "
+                f"{r['tf_tol']:.3g} (limit {tol} in float32); 0 kernel "
+                f"launches")
+            if dtype == torch.float32:
+                check(r["tf_tol"] <= tol,
+                      f"{tag}: decode vs teacher forcing needs tolerance "
+                      f"{r['tf_tol']:.3g} abs+rel, limit {tol}")
+        bf = runs[torch.bfloat16]["tokens"].tolist()
+        same, total = prefix_equal(bf, runs[torch.float32]["tokens"].tolist())
+        log(f"models: {arch} bf16 greedy tokens equal to float32's before "
+            f"each row's first difference: {same} of {total}")
+        if "paged_tokens" in runs[torch.bfloat16]:
+            same, total = prefix_equal(runs[torch.bfloat16]["paged_tokens"],
+                                       bf)
+            log(f"models: {arch} bf16 non-paged greedy tokens equal to the "
+                f"paged engine's (bf16 arena) before each row's first "
+                f"difference: {same} of {total}")
+
+
 def main() -> int:
     import torch
 
@@ -2029,6 +2254,7 @@ def main() -> int:
     tp_phase(results, name, "olmoe-1b-7b", record=True)
     tp_phase(results, name, "paligemma-3b")
     walls = fleet_phase(name)
+    models_phase(name)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)

@@ -17,13 +17,20 @@ Module map (port -> JAX counterpart):
 ``core/chaos.py``                       ``repro/core/chaos.py`` (snapshot's
                                         bump a device op)
 ``core/pagepool.py``                    ``repro/core/pagepool.py``
-``models/layers.py``                    ``repro/models/layers.py`` (dense
-                                        subset: norms, RoPE, QKV, MLPs)
+``models/layers.py``                    ``repro/models/layers.py`` (norms,
+                                        RoPE, QKV, MLPs, flash attention
+                                        forward, decode attention)
 ``models/moe.py``                       ``repro/models/moe.py`` (forward:
                                         routing, capacity, dropless)
+``models/rglru.py``, ``models/ssm.py``  ``repro/models/`` same names
 ``models/transformer.py``               ``repro/models/transformer.py``
-                                        (embed/unembed, ``DecoderLM``:
-                                        dense, MoE, the VLM's decoder)
+                                        (inference: every family's
+                                        forward, prefill, decode step and
+                                        cache; ``DecoderLM``, ``EncDecLM``,
+                                        ``HybridLM``, ``SSMLM``)
+``models/model.py``                     ``repro/models/model.py``
+                                        (``build_model``, ``Model``; no
+                                        ``loss``)
 ``convert.py``                          the weight bridge from the JAX pytree
 ``kernels/ref.py``                      ``repro/kernels/ref.py``
 ``kernels/ops.py``                      ``repro/kernels/ops.py`` (dispatch by
@@ -67,10 +74,9 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``tests/test_torch_engine.py`` pins that.
 
 Not yet ported: the reference's other MoE layouts (``REPRO_MOE_SHARD`` =
-``ep``, ``data``, ``none``); the non-paged decoder paths
-(``decoder_forward``, ``decoder_prefill``, the VLM's image prefix); the
-SSM, hybrid and encoder-decoder families; training (``models/model.py``,
-``optim/``, ``data/``, ``checkpoint/``); ``launch/*`` apart from
+``ep``, ``data``, ``none``); training (``Model.loss``, ``_chunked_ce``,
+the flash and MoE backwards, ``optim/``, ``data/``, ``checkpoint/``,
+``launch/steps.py``); ``launch/*`` apart from
 ``make_serving_mesh`` and ``serve.py``; the host arena and lock-free
 reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
 """

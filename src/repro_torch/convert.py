@@ -1,15 +1,21 @@
 """The weight bridge: the JAX package's parameter pytree -> the port's.
 
-The reference's ``init_decoder_lm`` returns nested dicts whose ``blocks``
-entry holds every per-layer leaf stacked on a leading L axis.  Handed over
-as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
-:func:`params_from_jax` splits ``blocks`` into L per-layer dicts and casts
-every leaf through float32 to ``dtype`` on ``device``, except the MoE
-router ``w_router``, which stays float32 as the reference keeps it
-whatever the model's dtype.  The float32 step
-is exact for bf16 leaves (``np.asarray(x, np.float32)`` reads ml_dtypes
-bfloat16 arrays without importing ml_dtypes), so a bf16 -> bf16 bridge is
-bit-exact.  Nothing here imports jax.
+The reference's ``init_*`` functions return nested dicts whose stacked
+groups hold every per-layer leaf on a leading axis: ``blocks`` (every
+family), ``enc_blocks`` (whisper's encoder), ``groups`` (RecurrentGemma's
+rec, rec, attn groups, each entry a nested dict) and ``tail`` (its
+trailing recurrent layers).  Handed over as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, params)``), :func:`params_from_jax` splits
+each stacked group into a list of per-layer dicts, copies the other
+entries (``embed``, the norms, and the top-level ``enc_pos`` and
+``lm_head``) as they are, and casts every leaf through float32 to
+``dtype`` on ``device`` — except :data:`FLOAT32_LEAVES`, which stay
+float32 as the reference keeps them whatever the model's dtype: the MoE
+router, and the SSM decay, skip and step bias and the RG-LRU gate, which
+in bf16 would change the recurrences.  The float32 step is exact for bf16
+leaves (``np.asarray(x, np.float32)`` reads ml_dtypes bfloat16 arrays
+without importing ml_dtypes), so a bf16 -> bf16 bridge is bit-exact.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -18,11 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.transformer import STACKED, lm_class
 
 
 #: leaves kept float32 whatever the model's dtype
-FLOAT32_LEAVES = frozenset({"w_router"})
+FLOAT32_LEAVES = frozenset({"w_router", "A_log", "D", "dt_bias", "lam"})
 
 
 def _leaf(x, dtype, device) -> torch.Tensor:
@@ -41,17 +47,30 @@ def _layer(d, i):
             for k, v in d.items()}
 
 
+def _depth(d) -> int:
+    """The leading (stacked) axis of a stacked group's leaves."""
+    v = next(iter(d.values()))
+    return _depth(v) if isinstance(v, dict) else len(v)
+
+
 def params_from_jax(cfg, tree: dict, dtype=torch.bfloat16, device=None) -> dict:
-    """Nested numpy dicts (blocks stacked on L) -> the port's nested tensor
-    dicts (blocks a list of L per-layer dicts)."""
+    """Nested numpy dicts (stacked groups on their leading axis) -> the
+    port's nested tensor dicts (each stacked group a list of per-layer
+    dicts)."""
     dev = resolve_device(device)
-    out = {k: _tree(v, dtype, dev) if isinstance(v, dict) else _leaf(v, dtype, dev)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_tree(_layer(tree["blocks"], i), dtype, dev)
-                     for i in range(cfg.n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k in STACKED:
+            out[k] = [_tree(_layer(v, i), dtype, dev) for i in range(_depth(v))]
+        elif isinstance(v, dict):
+            out[k] = _tree(v, dtype, dev)
+        else:
+            out[k] = _leaf(v, dtype, dev)
     return out
 
 
-def model_from_jax(cfg, tree: dict, dtype=torch.bfloat16, device=None) -> DecoderLM:
-    """:func:`params_from_jax` wrapped in the port's :class:`DecoderLM`."""
-    return DecoderLM(cfg, params_from_jax(cfg, tree, dtype, device))
+def model_from_jax(cfg, tree: dict, dtype=torch.bfloat16, device=None):
+    """:func:`params_from_jax` wrapped in the family's module
+    (:class:`~repro_torch.models.transformer.DecoderLM`, ``EncDecLM``,
+    ``HybridLM`` or ``SSMLM``)."""
+    return lm_class(cfg)(cfg, params_from_jax(cfg, tree, dtype, device))

@@ -9,7 +9,8 @@ named device (``cuda:0``, ``cpu``) holds every shard and replica, as
 are seeded ``init_decoder_lm`` parameters on the first device.  Decoder
 LMs: the ``dense``, ``moe`` and ``vlm`` families (a VLM serves its text
 decoder); any other family raises ``ValueError``, as the reference's
-serving demo refuses it.
+serving demo refuses it (its model runs, unpaged, through
+``repro_torch.models.build_model``).
 
 Synthesizes a batch of requests against a (reduced, by default) model and
 reports throughput plus the OA counters — preemptions, reader restarts,
@@ -219,7 +220,8 @@ def main(argv: list[str] | None = None):
         raise ValueError(
             f"{cfg.name}: serving demo: decoder LMs "
             f"({', '.join(DECODER_FAMILIES)}); the {cfg.family} family has no "
-            f"paged serving path (its model ports under ROADMAP A.6b)")
+            f"paged serving path (its model runs through "
+            f"repro_torch.models.build_model)")
     params = init_decoder_lm(cfg, seed=args.seed, device=devices[0])
 
     rng = np.random.default_rng(args.seed)

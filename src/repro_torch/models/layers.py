@@ -1,6 +1,8 @@
-"""Dense decoder layers: norms, RoPE, QKV projection, MLP variants.
+"""Shared model layers: norms, RoPE, QKV projection, MLP variants, and
+chunked-flash (forward) and decode attention.
 
-The port of the dense subset of ``repro.models.layers``.  Parameters are
+The port of ``repro.models.layers`` (forward only: the flash backward
+ports with training, ROADMAP A.7).  Parameters are
 mappings of tensors (``nn.ParameterDict`` in the model, plain dicts in the
 tests) in the JAX package's ``[in, out]`` layout, so ``x @ w`` is the same
 product in both and the weight bridge is a plain copy.
@@ -180,3 +182,105 @@ def attention_qkv(cfg, x, p, positions):
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Attention (chunked online softmax for forward/prefill; one product for
+# decode).  Plain tensor ops, as the reference's jnp: the masks and the
+# handling of a row with every key masked are the reference's own, so
+# neither is ``scaled_dot_product_attention``.  Scores, softmax and the
+# accumulator are float32 whatever the inputs' dtype (the reference's
+# ``preferred_element_type``): each product runs on float32 copies of its
+# operands, and the probabilities are rounded to V's dtype first, as the
+# reference rounds them before its PV product.
+
+
+def _f32_einsum(eq, a, b):
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _flash_mask(k_pos, q_pos, Sk, causal, window, prefix_len):
+    """[Sq, chunk] bool validity mask."""
+    mask = k_pos[None, :] < Sk  # KV padding
+    if causal:
+        cm = q_pos[:, None] >= k_pos[None, :]
+        if prefix_len:
+            cm = cm | (k_pos[None, :] < prefix_len)  # bidirectional prefix
+        mask = mask & cm
+    if window is not None:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    return mask
+
+
+def _flash_chunks(x, chunk):
+    """x [B, S, H, D] right-padded to whole chunks -> ([B, n, chunk, H, D],
+    n)."""
+    B, S, H, D = x.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+    return x.reshape(B, n, chunk, H, D), n
+
+
+def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
+                    q_offset=0, prefix_len=0):
+    """Online-softmax attention over KV chunks, without an S×S score
+    matrix (forward only: the reference's backward ports with training).
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] with Hq % Hkv == 0 (GQA, as
+    ``[B, Sq, Hkv, G, D]``).  ``window``: sliding-window size (None =
+    full); ``prefix_len``: leading positions that attend bidirectionally
+    (VLM image prefix); ``q_offset``: global position of q[0].  A query
+    whose every key is masked gets 0.  Returns [B, Sq, Hq, D] in q.dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    scale = 1.0 / math.sqrt(D)
+    kc, n = _flash_chunks(k, chunk)
+    vc, _ = _flash_chunks(v, chunk)
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full(qg.shape[:-1], -math.inf, device=dev)
+    l = torch.zeros(qg.shape[:-1], device=dev)
+    acc = torch.zeros(qg.shape, device=dev)
+    for ci in range(n):
+        kb, vb = kc[:, ci], vc[:, ci]
+        k_pos = ci * chunk + torch.arange(chunk, device=dev)
+        s = _f32_einsum("bqhgd,bkhd->bqhgk", qg, kb) * scale
+        mask = _flash_mask(k_pos, q_pos, Sk, causal, window,
+                           prefix_len)[None, :, None, None, :]
+        s = torch.where(mask, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        pv = _f32_einsum("bqhgk,bkhd->bqhgd", p.to(vb.dtype), vb)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
+    """Single-token attention over a (possibly longer-than-valid) cache.
+
+    q: [B, 1, Hq, D]; caches: [B, S, Hkv, D]; cache_len: [] or [B] valid
+    length (slots ``< cache_len`` are read; with ``window``, also only
+    slots ``>= cache_len - window``).  Returns [B, 1, Hq, D] in q.dtype.
+    """
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    s = _f32_einsum("bhgd,bkhd->bhgk", qg, k_cache) / math.sqrt(D)
+    k_pos = torch.arange(S, device=q.device)
+    n = cache_len.reshape(-1, 1)
+    valid = k_pos[None, :] < n  # [B or 1, S]
+    if window is not None:
+        valid = valid & (k_pos[None, :] >= n - window)
+    s = torch.where(valid[:, None, None, :], s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    o = _f32_einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, Hq, D).to(q.dtype)

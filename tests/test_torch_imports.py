@@ -82,6 +82,25 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     assert kv_storage_init(cfg, 4, 4, device="cpu")["k"].device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["olmo-1b", "whisper-tiny",
+                                  "recurrentgemma-9b", "mamba2-780m"])
+def test_build_model_raises_without_cuda_and_without_device(monkeypatch, arch):
+    """``build_model``'s ``init`` and ``init_cache`` follow the device
+    rule for every family: no card and no ``device=`` is an error."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    model = build_model(reduced(get_config(arch)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    params = model.init(dtype=torch.float32, device="cpu")
+    assert params.device.type == "cpu"
+    assert model.init_cache(2, 8, device="cpu")["len"].device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_missing_gpu(monkeypatch):
     """The CUDA wrappers never fall back: CPU tensors are refused before any
     build, and with no GPU the kernel library refuses to load."""
