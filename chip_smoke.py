@@ -109,6 +109,27 @@ run with a nonzero exit and no result line.
    decode ms/step, tokens/s and peak memory; bf16's greedy tokens equal
    to float32's, and olmo-1b bf16's equal to the paged engine's on the
    same prompts and weights (its arena is bf16: the equal prefix).
+7. Training (h): (1) every reduced config, card against CPU in float32
+   with TF32 off, from the same seeded weights and batch: ``Model.loss``
+   within 1e-5 + 1e-4|x|, every gradient leaf within 1e-5 + 1e-3|x|, and
+   one AdamW step's update within 1e-5 where the CPU's gradient exceeds
+   1e-6 (2 lr elsewhere: a near-zero gradient may flip the sign of AdamW's
+   first step).  (2) Full-width olmo-1b through
+   ``launch/train.py::train`` on the card: B=4, S=1024, 8 steps of ramp
+   data at lr 1e-4, a checkpoint every 4 steps into a temporary
+   directory under ``build/`` (deleted afterwards; the free disk is
+   printed first), a simulated failure at step 6, bf16 parameters and
+   float32 moments.
+   Held: every logged loss finite, exactly one failure and one restore,
+   the final loss below the first, steps 2 and 3 (neither a log nor a
+   checkpoint step) free of device->host transfers (sync debug mode
+   "error" from the batch's upload to the step's end), no kernel of the
+   repository launched, and the final checkpoint restored bit for bit
+   into a fresh module and optimizer state.  Printed: ms/step (CUDA
+   events), tokens/s, peak memory, checkpoint GB and seconds.  (3)
+   mamba2-780m (S=1024) and whisper-tiny (448 tokens over 1500 frames) at
+   full width, B=4, 3 steps each through ``make_train_step``: finite
+   losses, peak memory and step times printed.
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
 sharded kernel 3 and the fused launch; launches from the olmoe-1b-7b bf16
@@ -2038,17 +2059,20 @@ MODEL_PROMPTS = {"olmo-1b": 512, "mamba2-780m": 1000,
 MODEL_B, MODEL_STEPS = 4, 64
 
 
-def model_batch(cfg, S, dev, seed=0):
-    """Seeded prompts [B, S] int32 (and whisper's frames [B, F, d]) on
-    ``dev``."""
+def model_batch(cfg, S, dev, seed=0, B=MODEL_B):
+    """Seeded prompts [B, S] int32 (and whisper's frames [B, F, d], the
+    VLM's patches [B, P, d], float32) on ``dev``."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    b = {"tokens": rng.integers(0, cfg.vocab, (MODEL_B, S)).astype(np.int32)}
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
     if cfg.family == "audio":
         b["frames"] = rng.standard_normal(
-            (MODEL_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.prefix_tokens:
+        b["patches"] = rng.standard_normal(
+            (B, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
     return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
 
 
@@ -2217,6 +2241,355 @@ def models_phase(name):
                 f"difference: {same} of {total}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7 (h): training
+
+
+TRAIN_B, TRAIN_S = 2, 24  # the reduced card-vs-CPU batch
+TRAIN_LR = 1e-3  # the card-vs-CPU AdamW step
+#: full-width olmo-1b's learning rate: with no warmup (8 steps give the
+#: reference's ``min(50, steps // 10 + 1)`` = 1), the CLI's 1e-3 moves
+#: every weight by ~1e-3 a step and the loss does not fall within 8 steps
+TRAIN_FULL_LR = 1e-4
+#: full width through make_train_step: arch -> tokens per row
+TRAIN_WIDE = {"mamba2-780m": 1024, "whisper-tiny": 448}
+
+
+def train_parity():
+    """(h) 1: on every reduced config, float32 with TF32 off, the card's
+    ``Model.loss``, every gradient leaf and one AdamW step against the
+    CPU's from the same weights and batch.  Loss within 1e-5 + 1e-4|x|,
+    gradients within 1e-5 + 1e-3|x| (summation order only).  The step's
+    update (new minus old parameter) within 1e-5 where the CPU's gradient
+    is above 1e-6 in magnitude (100x the gradients' error, so its sign is
+    the card's too); below that, where AdamW's first step (about lr times
+    the gradient's sign) may take the other sign, within 2 lr."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    for arch in ARCH_IDS:
+        cfg = reduced(get_config(arch))
+        model = build_model(cfg)
+        host = model_batch(cfg, TRAIN_S, "cpu", B=TRAIN_B)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            # the same seeded CPU draw each time (the step updates in place)
+            params = model.init(seed=0, dtype=torch.float32, device="cpu")
+            params = params.placed(dev).requires_grad_(True)
+            loss, _ = model.loss(params, {k: v.to(dev)
+                                          for k, v in host.items()})
+            names, leaves = zip(*params.named_parameters())
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            before = [p.detach().clone() for p in leaves]
+            adamw_update(AdamWConfig(lr=TRAIN_LR, warmup_steps=1), params,
+                         dict(zip(names, grads)), adamw_init(params))
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        [(p.detach() - b).cpu()
+                         for p, b in zip(leaves, before)])
+        (closs, cg, cu), (gloss, gg, gu) = out["cpu"], out["cuda"]
+        check(abs(gloss - closs) <= 1e-5 + 1e-4 * abs(closs),
+              f"train parity {arch}: loss card {gloss} CPU {closs}")
+        gerr = uerr = 0.0
+        flips = 0
+        for n, c, g, a, b in zip(names, cg, gg, cu, gu):
+            gerr = max(gerr, float(((g - c).abs() / (1e-5 + 1e-3 * c.abs()))
+                                   .max()))
+            check(torch.allclose(g, c, atol=1e-5, rtol=1e-3),
+                  f"train parity {arch}: gradient {n} differs by "
+                  f"{float((g - c).abs().max()):.3g}")
+            big = c.abs() > 1e-6
+            d = (b - a).abs()
+            uerr = max(uerr, float(torch.where(big, d, 0).max()))
+            flips += int((~big & (d > 1e-5)).sum())
+            check(bool((d[big] <= 1e-5).all() and (d <= 2 * TRAIN_LR).all()),
+                  f"train parity {arch}: update of {n} differs by "
+                  f"{float(d.max()):.3g}")
+        log(f"train parity: reduced {arch}, loss card {gloss:.7f} CPU "
+            f"{closs:.7f}; {len(names)} gradient leaves within 1e-5 + "
+            f"1e-3|x| (worst at {gerr:.3g} of the limit); one AdamW step's "
+            f"update max abs difference {uerr:.3g} (limit 1e-5) where "
+            f"|grad| > 1e-6, {flips} elements below it past 1e-5")
+
+
+@contextlib.contextmanager
+def training_probe(steps_checked):
+    """Patches ``launch/train.py`` for one ``train()`` call: CUDA events
+    around every step function call (ms per step without host reads),
+    sync debug mode "error" from each checked step's batch upload to the
+    end of its step (a non-log, non-checkpoint step must make no
+    device->host transfer), and a record of every checkpoint manager and
+    restore.  Yields the record."""
+    import torch
+
+    import repro_torch.launch.train as tr
+
+    rec = {"events": [], "saves": [], "restores": 0, "checked": []}
+    orig_batch, orig_make = tr._device_batch, tr.make_train_step
+    orig_mgr = tr.CheckpointManager
+    attempt = [0]
+
+    def device_batch(cfg, host, step, bs, dev):
+        if step in steps_checked and attempt[0] == 0:
+            torch.cuda.set_sync_debug_mode("error")
+            rec["checked"].append(step)
+        return orig_batch(cfg, host, step, bs, dev)
+
+    def make(model, opt_cfg, **kw):
+        inner = orig_make(model, opt_cfg, **kw)
+
+        def step(params, state, batch):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = inner(params, state, batch)
+            b.record()
+            rec["events"].append((attempt[0], a, b))
+            torch.cuda.set_sync_debug_mode("default")
+            return out
+        return step
+
+    class Manager(orig_mgr):
+        def save(self, *a, **k):
+            super().save(*a, **k)
+            # the write thread fills in write_s when it is done
+            rec["saves"].append(self.last_save)
+
+        def restore(self, *a, **k):
+            rec["restores"] += 1
+            attempt[0] += 1
+            return super().restore(*a, **k)
+
+    tr._device_batch, tr.make_train_step = device_batch, make
+    tr.CheckpointManager = Manager
+    try:
+        yield rec
+    finally:
+        tr._device_batch, tr.make_train_step = orig_batch, orig_make
+        tr.CheckpointManager = orig_mgr
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def train_full(name):
+    """(h) 2: full-width olmo-1b through ``launch/train.py::train`` (module
+    docstring)."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import torch
+
+    import repro_torch.launch.train as tr
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import adamw_init
+
+    steps, B, S = 8, 4, 1024
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    free = shutil.disk_usage(ckdir).free
+    log(f"train: checkpoint directory {ckdir}, {free / 1e9:.1f} GB free "
+        f"before the run")
+    args = argparse.Namespace(
+        arch="olmo-1b", reduced=False, steps=steps, batch=B, seq=S,
+        lr=TRAIN_FULL_LR,
+        seed=0, log_every=4, ckpt_dir=ckdir, ckpt_every=4, fail_at_step=6,
+        grad_compression="none", data_source="ramp", device="cuda")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with training_probe({2, 3}) as rec:
+            out = tr.train(args)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+        check(not any(launches.values()),
+              f"train: the training path launched kernels {launches}")
+        losses = [h["loss"] for h in out["history"]]
+        check(all(math.isfinite(x) for x in losses),
+              f"train: non-finite loss {losses}")
+        check(out["restarts"] == 1 and rec["restores"] == 1,
+              f"train: {out['restarts']} failures, {rec['restores']} "
+              f"restores, want 1 and 1")
+        check(losses[-1] < losses[0],
+              f"train: final loss {losses[-1]} not below the first "
+              f"{losses[0]}")
+        check(rec["checked"] == [2, 3], f"train: sync-checked steps "
+              f"{rec['checked']}, want [2, 3]")
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for _, a, b in rec["events"]]
+        steady = ms[1:]  # the first step includes the autograd warm-up
+        step_ms = sum(steady) / len(steady)
+        saves = rec["saves"]
+        params, state = out["params"], out["opt_state"]
+        fresh = tr.build_model(params.cfg).init(
+            seed=1, dtype=tr.PARAM_DTYPE, device="cuda")
+        t1 = time.perf_counter()
+        (got, got_state), at, _ = CheckpointManager(ckdir).restore(
+            (fresh, adamw_init(fresh)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(at == steps, f"train: the last checkpoint is step {at}")
+        for (n, p), (_, q) in zip(params.named_parameters(),
+                                  got.named_parameters()):
+            check(p.dtype == q.dtype == torch.bfloat16 and torch.equal(p, q),
+                  f"train: restored parameter {n} differs")
+        for part in ("m", "v"):
+            for n, t in state[part].items():
+                check(got_state[part][n].dtype == torch.float32
+                      and torch.equal(t, got_state[part][n]),
+                      f"train: restored {part} of {n} differs")
+        check(torch.equal(state["step"], got_state["step"]),
+              "train: restored step differs")
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     [*params.parameters(), *state["m"].values(),
+                      *state["v"].values()])
+        log(f"train: olmo-1b full width ({params.cfg.n_layers} layers, "
+            f"d_model {params.cfg.d_model}, vocab {params.cfg.vocab_padded}"
+            f", remat {params.cfg.remat}), B={B} S={S}, {steps} steps with "
+            f"a failure at step 6, ramp data, bf16 parameters and float32 "
+            f"moments, on {name}: losses {[round(x, 4) for x in losses]} "
+            f"at steps {[h['step'] for h in out['history']]}; 1 failure, 1 "
+            f"restore; {step_ms:.1f} ms/step (CUDA events, mean of "
+            f"{len(steady)} steps after the first; all: "
+            f"{[round(x, 1) for x in ms]}), {B * S / step_ms * 1e3:.0f} "
+            f"tokens/s, peak {peak:.2f} GiB allocated, {wall:.1f} s wall; "
+            f"steps 2 and 3 made no device->host transfer (sync debug "
+            f"'error'); 0 kernel launches")
+        log(f"train: checkpoints of {saves[-1]['bytes'] / 1e9:.2f} GB "
+            f"({nbytes / 1e9:.2f} GB of parameters and moments); "
+            f"{len(saves)} saves: "
+            + ", ".join(f"snapshot {s['snapshot_s']:.2f} s + write "
+                        f"{s['write_s']:.2f} s" for s in saves)
+            + f" (async, then the final blocking one); the final one "
+            f"restored bit for bit into a fresh module and optimizer state "
+            f"in {restore_s:.2f} s, on {name}")
+        del out, params, state, got, got_state, fresh
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    gc_cuda()
+
+
+def gc_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_wide(name):
+    """(h) 3: mamba2-780m and whisper-tiny at full width, 3 steps each
+    through ``make_train_step`` (B=4, bf16 parameters, float32 moments):
+    the SSD and encoder-decoder backwards at real shapes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    for arch, S in TRAIN_WIDE.items():
+        cfg = get_config(arch)
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)
+        params = model.init(seed=0, dtype=torch.bfloat16,
+                            device="cuda").requires_grad_(True)
+        state = adamw_init(params)
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                  total_steps=3))
+        reset_launches()
+        losses, ms = [], []
+        for i in range(3):
+            batch = model_batch(cfg, S, "cuda", seed=i)
+            batch = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+                     for k, v in batch.items()}
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            params, state, met = step(params, state, batch)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            losses.append(float(met["loss"]))
+        launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+        check(not any(launches.values()),
+              f"train {arch}: launched kernels {launches}")
+        check(all(math.isfinite(x) for x in losses),
+              f"train {arch}: non-finite loss {losses}")
+        log(f"train: {arch} full width ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, remat {cfg.remat}), B=4 S={S}, 3 steps through "
+            f"make_train_step on {name}: losses "
+            f"{[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x, 1) for x in ms]}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        del params, state, met
+
+
+def profile_train(name, steps=2):
+    """``--profile``: a torch.profiler trace of ``steps`` steady training
+    steps of full-width olmo-1b through ``make_train_step`` (B=4, S=1024,
+    bf16 parameters, float32 moments, the phase's settings): wall and
+    device-busy time per step, the matrix products' share and the ops
+    that take the device time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc_cuda()
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16,
+                        device="cuda").requires_grad_(True)
+    state = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_FULL_LR,
+                                              warmup_steps=1, total_steps=8))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                    global_batch=4, source="ramp"))
+    batch = {"tokens": torch.from_numpy(pipe.next()["tokens"]).cuda()}
+    holder = [params, state]
+
+    def one():
+        holder[0], holder[1], _ = step(holder[0], holder[1], batch)
+
+    for _ in range(2):  # warm
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = device_rows(one, steps)
+    busy = sum(r[0] for r in rows)
+    gemm = sum(r[0] for r in rows if any(g in r[2] for g in GEMM_NAMES))
+    log(f"profile train olmo-1b: B=4 S=1024, {steps} steady steps on {name}: "
+        f"{wall:.1f} ms/step wall (unprofiled), {busy:.1f} ms/step of device "
+        f"time in {sum(r[1] for r in rows):.0f} device ops "
+        f"({100 * busy / wall:.1f}% busy); matrix products {gemm:.1f} ms "
+        f"({100 * gemm / busy:.1f}% of the device time)")
+    for ms, count, key in sorted(rows, reverse=True)[:16]:
+        log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
+
+
+def train_phase(name):
+    """Phase 7 (h): training (module docstring).  olmoe-1b-7b and
+    recurrentgemma-9b are not trained here: with float32 moments their
+    state alone (bf16 parameters, bf16 gradients and two float32 moments,
+    12 bytes a parameter: about 83 GB and 113 GB) exceeds one 80 GB card."""
+    train_parity()
+    train_full(name)
+    train_wide(name)
+
+
 def main() -> int:
     import torch
 
@@ -2255,12 +2628,14 @@ def main() -> int:
     tp_phase(results, name, "paligemma-3b")
     walls = fleet_phase(name)
     models_phase(name)
+    train_phase(name)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)
         profile_phase(name, arch="olmoe-1b-7b")
         profile_phase(name, tp=TP, arch="paligemma-3b")
         profile_fleet(name, walls)
+        profile_train(name)
 
     kernels = [results["paged_attention"], results["kv_append"],
                results["paged_attention_sharded"],

@@ -19,19 +19,28 @@ Module map (port -> JAX counterpart):
 ``core/pagepool.py``                    ``repro/core/pagepool.py``
 ``models/layers.py``                    ``repro/models/layers.py`` (norms,
                                         RoPE, QKV, MLPs, flash attention
-                                        forward, decode attention)
-``models/moe.py``                       ``repro/models/moe.py`` (forward:
-                                        routing, capacity, dropless)
+                                        and its backward, decode
+                                        attention)
+``models/moe.py``                       ``repro/models/moe.py`` (routing,
+                                        capacity, dropless; the backward
+                                        is autograd's)
 ``models/rglru.py``, ``models/ssm.py``  ``repro/models/`` same names
 ``models/transformer.py``               ``repro/models/transformer.py``
-                                        (inference: every family's
-                                        forward, prefill, decode step and
+                                        (every family's forward under
+                                        ``remat``, prefill, decode step and
                                         cache; ``DecoderLM``, ``EncDecLM``,
                                         ``HybridLM``, ``SSMLM``)
 ``models/model.py``                     ``repro/models/model.py``
-                                        (``build_model``, ``Model``; no
+                                        (``build_model``, ``Model`` with
                                         ``loss``)
-``convert.py``                          the weight bridge from the JAX pytree
+``optim/adamw.py``                      ``repro/optim/adamw.py`` (state by
+                                        parameter name, updated in place)
+``data/pipeline.py`` (copy)             ``repro/data/pipeline.py``
+``checkpoint/manager.py``               ``repro/checkpoint/manager.py`` (the
+                                        same on-disk format; ``device=``
+                                        for ``shardings=``)
+``convert.py``                          the weight (and AdamW state) bridge
+                                        from the JAX pytree
 ``kernels/ref.py``                      ``repro/kernels/ref.py``
 ``kernels/ops.py``                      ``repro/kernels/ops.py`` (dispatch by
                                         device, not by ``impl``)
@@ -52,6 +61,9 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
                                         (``make_serving_mesh`` only)
 ``launch/serve.py``                     ``repro/launch/serve.py`` (plus
                                         ``--device``)
+``launch/steps.py``                     ``repro/launch/steps.py``
+``launch/train.py``                     ``repro/launch/train.py`` (plus
+                                        ``--device``; no ``--mesh``)
 ``sharding/rules.py``                   ``repro/sharding/rules.py`` (serving
                                         TP subset: weights, experts'
                                         hidden axis, paged arena split or
@@ -74,9 +86,10 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``tests/test_torch_engine.py`` pins that.
 
 Not yet ported: the reference's other MoE layouts (``REPRO_MOE_SHARD`` =
-``ep``, ``data``, ``none``); training (``Model.loss``, ``_chunked_ce``,
-the flash and MoE backwards, ``optim/``, ``data/``, ``checkpoint/``,
-``launch/steps.py``); ``launch/*`` apart from
-``make_serving_mesh`` and ``serve.py``; the host arena and lock-free
-reclaimers of ``core/`` (``lrmalloc.py``, ``reclaim.py``, …).
+``ep``, ``data``, ``none``); the training half of ``sharding/rules.py``
+(``param_specs`` without ``serving``, ``opt_specs``, ``batch_specs``,
+the ``shard_*`` constraints); ``launch/*`` apart from
+``make_serving_mesh``, ``steps.py``, ``serve.py`` and ``train.py``; the
+host arena and lock-free reclaimers of ``core/`` (``lrmalloc.py``,
+``reclaim.py``, …).
 """

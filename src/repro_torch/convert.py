@@ -15,7 +15,10 @@ router, and the SSM decay, skip and step bias and the RG-LRU gate, which
 in bf16 would change the recurrences.  The float32 step is exact for bf16
 leaves (``np.asarray(x, np.float32)`` reads ml_dtypes bfloat16 arrays
 without importing ml_dtypes), so a bf16 -> bf16 bridge is bit-exact.
-Nothing here imports jax.
+:func:`opt_state_from_jax` carries the reference's AdamW state (``m``
+and ``v`` trees shaped as the parameters, and ``step``) over the same
+mapping into the port's (``optim/adamw.py``: moments by parameter name),
+so both packages can step from one state.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -74,3 +77,23 @@ def model_from_jax(cfg, tree: dict, dtype=torch.bfloat16, device=None):
     (:class:`~repro_torch.models.transformer.DecoderLM`, ``EncDecLM``,
     ``HybridLM`` or ``SSMLM``)."""
     return lm_class(cfg)(cfg, params_from_jax(cfg, tree, dtype, device))
+
+
+def named_from_jax(cfg, tree: dict, dtype=torch.float32, device=None) -> dict:
+    """A tree shaped as the reference's parameters -> {the port's parameter
+    name: tensor} (``model.named_parameters()``'s names), every leaf in
+    ``dtype`` apart from :data:`FLOAT32_LEAVES`; for gradients and
+    optimizer moments."""
+    return {n: p.data for n, p in
+            model_from_jax(cfg, tree, dtype, device).named_parameters()}
+
+
+def opt_state_from_jax(cfg, state: dict, device=None) -> dict:
+    """The reference's AdamW state ({"m", "v": parameter-shaped numpy
+    trees, "step"}) -> the port's: float32 moments by parameter name and
+    an int32 ``step`` tensor on ``device``."""
+    dev = resolve_device(device)
+    return {"m": named_from_jax(cfg, state["m"], torch.float32, dev),
+            "v": named_from_jax(cfg, state["v"], torch.float32, dev),
+            "step": torch.tensor(int(state["step"]), dtype=torch.int32,
+                                 device=dev)}

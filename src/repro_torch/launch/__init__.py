@@ -1,2 +1,3 @@
-"""Launch helpers: the tensor-parallel serving mesh (``mesh.py``) and the
-serving CLI (``serve.py``)."""
+"""Launch helpers: the tensor-parallel serving mesh (``mesh.py``), the
+step functions (``steps.py``), the serving CLI (``serve.py``) and the
+training driver (``train.py``)."""

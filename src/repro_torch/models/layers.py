@@ -1,8 +1,8 @@
 """Shared model layers: norms, RoPE, QKV projection, MLP variants, and
-chunked-flash (forward) and decode attention.
+chunked-flash attention (with its hand-written backward) and decode
+attention.
 
-The port of ``repro.models.layers`` (forward only: the flash backward
-ports with training, ROADMAP A.7).  Parameters are
+The port of ``repro.models.layers``.  Parameters are
 mappings of tensors (``nn.ParameterDict`` in the model, plain dicts in the
 tests) in the JAX package's ``[in, out]`` layout, so ``x @ w`` is the same
 product in both and the weight bridge is a plain copy.
@@ -223,25 +223,17 @@ def _flash_chunks(x, chunk):
     return x.reshape(B, n, chunk, H, D), n
 
 
-def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
-                    q_offset=0, prefix_len=0):
-    """Online-softmax attention over KV chunks, without an S×S score
-    matrix (forward only: the reference's backward ports with training).
-
-    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] with Hq % Hkv == 0 (GQA, as
-    ``[B, Sq, Hkv, G, D]``).  ``window``: sliding-window size (None =
-    full); ``prefix_len``: leading positions that attend bidirectionally
-    (VLM image prefix); ``q_offset``: global position of q[0].  A query
-    whose every key is masked gets 0.  Returns [B, Sq, Hq, D] in q.dtype.
-    """
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+def _flash_fwd(qg, k, v, cfgt):
+    """The forward loop over KV chunks: qg [B, Sq, Hkv, G, D], k/v [B, Sk,
+    Hkv, D] -> (out float32 [B, Sq, Hkv, G, D], lse float32 [B, Sq, Hkv,
+    G]); ``lse`` is -inf where no key is visible, and ``out`` 0 there."""
+    causal, chunk, window, q_offset, prefix_len = cfgt
+    Sk, D = k.shape[1], qg.shape[-1]
     scale = 1.0 / math.sqrt(D)
     kc, n = _flash_chunks(k, chunk)
     vc, _ = _flash_chunks(v, chunk)
-    dev = q.device
-    q_pos = q_offset + torch.arange(Sq, device=dev)
+    dev = qg.device
+    q_pos = q_offset + torch.arange(qg.shape[1], device=dev)
     m = torch.full(qg.shape[:-1], -math.inf, device=dev)
     l = torch.zeros(qg.shape[:-1], device=dev)
     acc = torch.zeros(qg.shape, device=dev)
@@ -260,7 +252,77 @@ def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
         pv = _f32_einsum("bqhgk,bkhd->bqhgd", p.to(vb.dtype), vb)
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    l_safe = torch.clamp(l, min=1e-30)
+    out = acc / l_safe[..., None]
+    lse = torch.where(l > 0, m + torch.log(l_safe), -math.inf)
+    return out, lse
+
+
+class _FlashCore(torch.autograd.Function):
+    """Flash attention with the reference's hand-written backward
+    (``_flash_core``'s ``custom_vjp``).  The forward saves only (qg, k, v,
+    out, lse), and the backward recomputes each KV chunk's probabilities
+    from ``lse`` in its own loop, so no chunk's Sq×chunk scores outlive
+    it.  Autograd never sees the forward loop."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, cfgt):
+        out, lse = _flash_fwd(qg, k, v, cfgt)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.cfgt = cfgt
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, out, lse = ctx.saved_tensors
+        causal, chunk, window, q_offset, prefix_len = ctx.cfgt
+        B, Sq, Hkv, G, D = qg.shape
+        Sk = k.shape[1]
+        scale = 1.0 / math.sqrt(D)
+        kc, n = _flash_chunks(k, chunk)
+        vc, _ = _flash_chunks(v, chunk)
+        dev = qg.device
+        q_pos = q_offset + torch.arange(Sq, device=dev)
+        dout32 = dout.float()
+        delta = torch.sum(dout32 * out, dim=-1)  # [B, Sq, Hkv, G]
+        lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+        q32 = qg.float()
+        dq = torch.zeros(qg.shape, device=dev)
+        dks, dvs = [], []
+        for ci in range(n):
+            kb, vb = kc[:, ci], vc[:, ci]
+            k_pos = ci * chunk + torch.arange(chunk, device=dev)
+            s = _f32_einsum("bqhgd,bkhd->bqhgk", qg, kb) * scale
+            mask = _flash_mask(k_pos, q_pos, Sk, causal, window,
+                               prefix_len)[None, :, None, None, :]
+            p = torch.where(mask, torch.exp(s - lse_safe[..., None]), 0.0)
+            dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p, dout32))
+            dp = _f32_einsum("bqhgd,bkhd->bqhgk", dout, vb)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + _f32_einsum("bqhgk,bkhd->bqhgd", ds.to(kb.dtype), kb)
+            dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, q32))
+        dk = torch.cat(dks, dim=1)[:, :Sk]
+        dv = torch.cat(dvs, dim=1)[:, :Sk]
+        return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
+                    q_offset=0, prefix_len=0):
+    """Online-softmax attention over KV chunks, without an S×S score
+    matrix, with the reference's memory-true backward
+    (:class:`_FlashCore`).
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] with Hq % Hkv == 0 (GQA, as
+    ``[B, Sq, Hkv, G, D]``).  ``window``: sliding-window size (None =
+    full); ``prefix_len``: leading positions that attend bidirectionally
+    (VLM image prefix); ``q_offset``: global position of q[0].  A query
+    whose every key is masked gets 0.  Returns [B, Sq, Hq, D] in q.dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    out = _FlashCore.apply(qg, k, v,
+                           (causal, chunk, window, q_offset, prefix_len))
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 

@@ -1,9 +1,10 @@
 """Top-level model API: one object per architecture config.
 
-The port of ``repro.models.model``'s inference half::
+The port of ``repro.models.model``::
 
     model = build_model(cfg)
     params = model.init(seed, dtype, device)           # the family's module
+    loss, metrics = model.loss(params, batch)          # training objective
     hidden, aux = model.forward(params, batch)         # teacher forcing
     cache, logits = model.prefill(params, batch, n)    # inference prefill
     logits, cache = model.decode_step(params, cache, b)
@@ -12,18 +13,24 @@ The port of ``repro.models.model``'s inference half::
 ``params`` is the family's ``nn.Module`` (``models/transformer.py``), or
 the weight bridge's (``convert.py::model_from_jax``).  ``forward`` is the
 reference's ``fwd_eval``: for MoE the dropless dispatch, so it is the same
-per-token function as prefill + decode_step.  The training objective
-(``Model.loss`` and its chunked cross-entropy ``_chunked_ce``) ports with
-training, where its gradient is held too (ROADMAP A.7).  Entry points run
-on ``cuda`` unless given ``device="cpu"``.
+per-token function as prefill + decode_step; ``loss`` runs the
+capacity-bounded forward, as the reference's does.
+
+The loss computes cross-entropy in sequence chunks (:func:`_chunked_ce`),
+each chunk's logits under ``torch.utils.checkpoint``, so the float32
+[B, S, vocab] logits are never live at once, in the forward or the
+backward.  Entry points run on ``cuda`` unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import transformer as T
 
@@ -33,21 +40,73 @@ class Model:
     cfg: Any
     init: Callable  # (seed=0, dtype=bf16, device=None) -> module
     forward: Callable  # (params, batch) -> (hidden [B,S,d], aux)
+    loss: Callable  # (params, batch) -> (loss, metrics)
     prefill: Callable  # (params, batch, cache_size) -> (cache, logits)
     decode_step: Callable  # (params, cache, batch) -> (logits, cache)
     init_cache: Callable  # (batch_size, cache_size, device=None) -> cache
 
 
-#: family -> (init, forward, prefill, decode_step, init_cache)
+def _ce_chunk(h, w, lbl, msk):
+    """Summed masked NLL of one chunk: h [B, c, d] @ w in the model's
+    dtype, then float32 over the (padded) vocabulary."""
+    logits = (h @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    return torch.sum((lse - gold) * msk)
+
+
+def _chunked_ce(cfg, params, hidden, labels, mask):
+    """hidden [B,S,d], labels/mask [B,S] -> mean NLL over masked positions."""
+    S = hidden.shape[1]
+    chunk = min(cfg.loss_chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    w = params.embed["tok"].T if cfg.tie_embeddings else params.lm_head
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for i in range(0, hidden.shape[1], chunk):
+        args = (hidden[:, i:i + chunk], w, labels[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        if torch.is_grad_enabled():  # recompute the logits in the backward
+            nll = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            nll = _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + torch.sum(args[3])
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _loss(cfg, fwd, params, batch):
+    """The reference's ``loss_fn``: next-token cross-entropy (the last
+    position masked; the VLM's on its text suffix only) plus
+    ``moe_aux_coef`` times the aux loss -> (loss, {"ce", "aux"})."""
+    hidden, aux = fwd(cfg, params, batch)
+    tokens = batch["tokens"]
+    if cfg.prefix_tokens:  # VLM: loss only on the text suffix
+        hidden = hidden[:, batch["patches"].shape[1]:, :]
+    labels = F.pad(tokens[:, 1:].long(), (0, 1))
+    mask = F.pad(torch.ones(tokens[:, 1:].shape, device=tokens.device),
+                 (0, 1))
+    ce = _chunked_ce(cfg, params, hidden, labels, mask)
+    return ce + cfg.moe_aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+#: family -> (init, training forward, eval forward, prefill, decode_step,
+#: init_cache); the eval forward is the reference's ``fwd_eval``
 _FAMILIES = {
-    "decoder": (T.init_decoder_lm, T.decoder_forward, T.decoder_prefill,
-                T.decoder_decode_step, T.decoder_init_cache),
-    "audio": (T.init_encdec, T.encdec_forward, T.encdec_prefill,
-              T.encdec_decode_step, T.encdec_init_cache),
-    "hybrid": (T.init_hybrid, T.hybrid_forward, T.hybrid_prefill,
-               T.hybrid_decode_step, T.hybrid_init_cache),
-    "ssm": (T.init_ssm_lm, T.ssm_forward, T.ssm_prefill, T.ssm_decode_step,
-            T.ssm_init_cache),
+    "decoder": (T.init_decoder_lm, T.decoder_forward,
+                functools.partial(T.decoder_forward, dropless=True),
+                T.decoder_prefill, T.decoder_decode_step,
+                T.decoder_init_cache),
+    "audio": (T.init_encdec, T.encdec_forward, T.encdec_forward,
+              T.encdec_prefill, T.encdec_decode_step, T.encdec_init_cache),
+    "hybrid": (T.init_hybrid, T.hybrid_forward, T.hybrid_forward,
+               T.hybrid_prefill, T.hybrid_decode_step, T.hybrid_init_cache),
+    "ssm": (T.init_ssm_lm, T.ssm_forward, T.ssm_forward, T.ssm_prefill,
+            T.ssm_decode_step, T.ssm_init_cache),
 }
 
 
@@ -57,7 +116,7 @@ def build_model(cfg) -> Model:
     fam = "decoder" if cfg.family in T.DECODER_FAMILIES else cfg.family
     if fam not in _FAMILIES:
         raise ValueError(cfg.family)
-    init, fwd, prefill, decode, init_cache = _FAMILIES[fam]
+    init, fwd, fwd_eval, prefill, decode, init_cache = _FAMILIES[fam]
     cls = T.lm_class(cfg)
 
     def init_module(seed: int = 0, dtype=torch.bfloat16, device=None):
@@ -66,7 +125,8 @@ def build_model(cfg) -> Model:
     return Model(
         cfg=cfg,
         init=init_module,
-        forward=lambda params, batch: fwd(cfg, params, batch),
+        forward=lambda params, batch: fwd_eval(cfg, params, batch),
+        loss=lambda params, batch: _loss(cfg, fwd, params, batch),
         prefill=lambda params, batch, n: prefill(cfg, params, batch, n),
         decode_step=lambda params, cache, batch: decode(cfg, params, cache,
                                                         batch),

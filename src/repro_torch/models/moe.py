@@ -1,6 +1,6 @@
 """Token-choice top-k Mixture of Experts with capacity-bounded dispatch.
 
-The port of ``repro.models.moe`` (forward only: this slice serves).  The
+The port of ``repro.models.moe``, forward and backward.  The
 same function: a float32 router, top-k gates renormalised to sum to 1,
 each assignment's slot within its expert counted per batch row in
 (token, choice) order, assignments past an expert's capacity C dropped,
@@ -21,6 +21,15 @@ slice and a dropped assignment is written to the trash row instead of
 relying on an out-of-range scatter being dropped (on CUDA an out-of-range
 index is a device-side assert).  The gather back clamps the dropped slot
 to C − 1 and multiplies by 0, as the reference's clamped gather does.
+
+The backward is autograd's.  The reference writes the combine's
+transpose by hand (``_combine_core``) only to keep GSPMD from
+all-gathering the batch; the function is the same as autograd's
+transpose of the gather back here: a scatter-add of the kept slots'
+cotangents into ``out``, zero for the dropped ones (their gathered row is
+multiplied by 0).  The dispatch's transpose likewise gathers each kept
+assignment's row of the buffer's cotangent and gives a dropped one 0
+(the trash row is outside the expert buffer).
 
 Everything here is a plain tensor op on the caller's device with no host
 read: no ``.item()``, no boolean-mask indexing, no ``nonzero``.  Ties in

@@ -1,7 +1,7 @@
 """Model family assembly: decoder LM (dense / MoE / prefix-VLM), encoder-
 decoder (whisper), hybrid recurrent (RecurrentGemma), SSM (Mamba-2).
 
-The port of ``repro.models.transformer``'s inference half.  The JAX package
+The port of ``repro.models.transformer``.  The JAX package
 keeps parameters as a pytree with the layers stacked on a leading axis and
 scans over them; here each family's parameters are an ``nn.Module``
 (:class:`DecoderLM`, :class:`EncDecLM`, :class:`HybridLM`, :class:`SSMLM`)
@@ -9,7 +9,13 @@ whose stacked groups (``blocks``, ``enc_blocks``, ``groups``, ``tail``)
 are ``ModuleList``s of per-layer :class:`Block`s, walked by a Python loop.
 Every parameter keeps the reference's name and ``[in, out]`` layout:
 ``model.blocks[l]["attn"]["wq"]`` is ``params["blocks"]["attn"]["wq"][l]``.
-Parameters never require gradients: training ports later (ROADMAP A.7).
+Parameters are created with ``requires_grad=False``, so the serving and
+inference paths build no autograd graph; the trainer turns gradients on
+with ``module.requires_grad_(True)`` (``launch/train.py``).  Each
+family's ``*_forward`` runs its layer loop under the config's ``remat``
+(:func:`_remat`), as the reference wraps its scans in ``_maybe_remat``,
+and the decoder's takes the reference's ``dropless`` switch: the training
+loss runs the capacity-bounded MoE, every inference path the dropless one.
 
 Each family has the reference's four entry points, plain functions over
 its module (``models/model.py::build_model`` binds them):
@@ -32,10 +38,13 @@ non-paged path (sliding window and VLM image prefix included).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from . import rglru as rglru_lib
@@ -80,12 +89,42 @@ def unembed(cfg, model, x):
     return x @ w
 
 
-def _ffn(cfg, x, blk, norm):
-    """x plus the block's MLP (or dropless MoE) of ``norm``(x)."""
+def _ffn(cfg, x, blk, norm, dropless=False):
+    """x plus the block's MLP (or MoE, capacity-bounded unless
+    ``dropless``) of ``norm``(x)."""
     h = apply_norm(cfg, x, blk[norm])
     if "moe" in blk:
-        return x + moe_apply(cfg, h, blk["moe"], dropless=True)[0]
+        return x + moe_apply(cfg, h, blk["moe"], dropless=dropless)[0]
     return x + mlp_apply(cfg, h, blk["mlp"])
+
+
+#: the matrix products without batch dimensions, whose outputs ``"dots"``
+#: keeps (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)`` — one layer of a layer loop — under the config's
+    rematerialisation, the reference's ``_maybe_remat``: ``"full"`` keeps
+    only the layer's inputs and recomputes the rest in the backward,
+    ``"dots"`` also keeps the outputs of its matrix products without
+    batch dimensions.  With ``"none"``, or where no backward can follow
+    (grad mode off), ``fn`` runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    # the layers draw no random numbers: no RNG state to stash
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, **kw)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, **kw, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(cfg.remat)
 
 
 def _ring_align(kv, W):
@@ -326,9 +365,9 @@ def _decoder_embed(cfg, model, batch):
     return torch.cat([prefix, x], dim=1), prefix.shape[1]
 
 
-def _decoder_block_fwd(cfg, x, blk, positions, prefix_len):
+def _decoder_block_fwd(cfg, x, blk, positions, prefix_len, dropless=False):
     """One block over the whole sequence -> (x, aux, k, v); MoE blocks
-    dispatch dropless."""
+    capacity-bounded unless ``dropless``."""
     h = apply_norm(cfg, x, blk["ln1"])
     q, k, v = attention_qkv(cfg, h, blk["attn"], positions)
     # prefix_len > 0: leading (image) tokens attend bidirectionally
@@ -337,23 +376,29 @@ def _decoder_block_fwd(cfg, x, blk, positions, prefix_len):
     x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
     h2 = apply_norm(cfg, x, blk["ln2"])
     if cfg.moe:
-        y, aux = moe_apply(cfg, h2, blk["moe"], dropless=True)
+        y, aux = moe_apply(cfg, h2, blk["moe"], dropless=dropless)
     else:
         y = mlp_apply(cfg, h2, blk["mlp"])
         aux = torch.zeros((), device=x.device)
     return x + y, aux, k, v
 
 
-def decoder_forward(cfg, model, batch):
+def decoder_forward(cfg, model, batch, dropless=False):
     """-> (hidden [B, S, d] final-normed, aux loss float32 []).  S includes
-    the VLM prefix if present.  MoE runs dropless: the reference's
-    ``fwd_eval``, the same per-token function as prefill + decode_step
-    (its capacity-bounded training forward ports with the loss)."""
+    the VLM prefix if present.  ``dropless``: size MoE capacity so no
+    assignment is dropped, the inference (teacher-forcing) function that
+    matches prefill + decode_step; the training loss keeps the
+    capacity-bounded default, as the reference's does."""
     x, prefix_len = _decoder_embed(cfg, model, batch)
     pos_all = torch.arange(x.shape[1], device=x.device)
+
+    def layer(x, blk):
+        return _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len,
+                                  dropless)[:2]
+
     auxs = []
     for blk in model.blocks:
-        x, aux, _, _ = _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len)
+        x, aux = _remat(cfg, layer, x, blk)
         auxs.append(aux)
     return apply_norm(cfg, x, model.final_norm), torch.stack(auxs).sum()
 
@@ -368,7 +413,8 @@ def decoder_prefill(cfg, model, batch, cache_size):
     pos_all = torch.arange(S, device=x.device)
     kc = vc = None
     for l, blk in enumerate(model.blocks):
-        x, _, k, v = _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len)
+        x, _, k, v = _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len,
+                                        dropless=True)
         if kc is None:
             kc = k.new_zeros((cfg.n_layers, B, cache_size) + k.shape[2:])
             vc = torch.zeros_like(kc)
@@ -392,7 +438,7 @@ def decoder_decode_step(cfg, model, cache, batch):
         kc, vc = _ring_step(cache, l, rows, slot, k, v)
         att = decode_attention(q, kc, vc, cache_len, window=window)
         x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
-        x = _ffn(cfg, x, blk, "ln2")
+        x = _ffn(cfg, x, blk, "ln2", dropless=True)
     x = apply_norm(cfg, x, model.final_norm)
     return (unembed(cfg, model, x)[:, 0].float(),
             {**cache, "len": cache["len"] + 1})
@@ -449,12 +495,16 @@ def encoder_forward(cfg, model, frames):
     to bf16 and added to ``enc_pos`` as the reference does -> [B, F, d]."""
     x = frames.to(torch.bfloat16) + model.enc_pos[None, :frames.shape[1], :]
     pos = torch.arange(x.shape[1], device=x.device)
-    for blk in model.enc_blocks:
+
+    def layer(x, blk):
         h = apply_norm(cfg, x, blk["ln1"])
         q, k, v = attention_qkv(cfg, h, blk["attn"], pos)
         att = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
         x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
-        x = x + mlp_apply(cfg, apply_norm(cfg, x, blk["ln2"]), blk["mlp"])
+        return x + mlp_apply(cfg, apply_norm(cfg, x, blk["ln2"]), blk["mlp"])
+
+    for blk in model.enc_blocks:
+        x = _remat(cfg, layer, x, blk)
     return apply_norm(cfg, x, model.enc_norm)
 
 
@@ -493,8 +543,12 @@ def _encdec_decoder(cfg, model, batch):
 def encdec_forward(cfg, model, batch):
     """batch: frames [B, F, d], tokens [B, S] -> (hidden [B, S, d], 0)."""
     enc_out, x, pos = _encdec_decoder(cfg, model, batch)
+
+    def layer(x, blk, enc_out):
+        return _encdec_block_fwd(cfg, x, blk, pos, enc_out)[0]
+
     for blk in model.blocks:
-        x = _encdec_block_fwd(cfg, x, blk, pos, enc_out)[0]
+        x = _remat(cfg, layer, x, blk, enc_out)
     return (apply_norm(cfg, x, model.final_norm),
             torch.zeros((), device=x.device))
 
@@ -607,12 +661,17 @@ def _hybrid_attn(cfg, x, sub, pos):
 
 
 def hybrid_forward(cfg, model, batch):
-    """-> (hidden [B, S, d], 0)."""
+    """-> (hidden [B, S, d], 0).  Each (rec, rec, attn) group runs under
+    the config's remat; the tail does not, as in the reference."""
     x, pos = _embed_seq(cfg, model, batch["tokens"])
-    for g in model.groups:
+
+    def group(x, g):
         x = _hybrid_rec(cfg, x, g["rec1"])[0]
         x = _hybrid_rec(cfg, x, g["rec2"])[0]
-        x = _hybrid_attn(cfg, x, g["attn"], pos)[0]
+        return _hybrid_attn(cfg, x, g["attn"], pos)[0]
+
+    for g in model.groups:
+        x = _remat(cfg, group, x, g)
     for sub in model.tail if "tail" in model else ():
         x = _hybrid_rec(cfg, x, sub)[0]
     return (apply_norm(cfg, x, model.final_norm),
@@ -731,9 +790,13 @@ def init_ssm_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
 def ssm_forward(cfg, model, batch):
     """-> (hidden [B, S, d], 0)."""
     x = _embed_seq(cfg, model, batch["tokens"])[0]
-    for blk in model.blocks:
+
+    def layer(x, blk):
         h = apply_norm(cfg, x, blk["ln1"])
-        x = x + ssm_lib.ssd_apply(cfg, h, blk["ssm"], chunk=cfg.ssd_chunk)
+        return x + ssm_lib.ssd_apply(cfg, h, blk["ssm"], chunk=cfg.ssd_chunk)
+
+    for blk in model.blocks:
+        x = _remat(cfg, layer, x, blk)
     return (apply_norm(cfg, x, model.final_norm),
             torch.zeros((), device=x.device))
 

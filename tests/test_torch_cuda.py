@@ -478,3 +478,53 @@ def test_cuda_build_model_prefill_decode_matches_cpu(cuda, arch):
     cpu, card = out["cpu"], out[str(cuda)]
     torch.testing.assert_close(card, cpu, atol=1e-3, rtol=1e-3)
     assert torch.equal(card.argmax(-1), cpu.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo-1b", "olmoe-1b-7b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One ``make_train_step`` step of the reduced model on the card and
+    on the CPU from the same float32 weights and batch (float32 both, TF32
+    off by default): the metrics within 1e-4 abs/rel, the moments within
+    1e-7 + 1e-3|x|, and each parameter's update within 1e-5 where the
+    CPU's first moment is above 1e-7 (its gradient above 1e-6, far above
+    the summation-order error, so the update's sign agrees) and within
+    2 lr elsewhere (AdamW's first step is about lr times the gradient's
+    sign, which a near-zero gradient may flip)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    lr = 1e-3
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 32))
+    runs = []
+    for dev in ("cpu", cuda):
+        # the same seeded CPU draw each time (the step updates in place)
+        params = model.init(seed=3, dtype=torch.float32, device="cpu")
+        params = params.placed(dev).requires_grad_(True)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in params.named_parameters()}
+        step = make_train_step(model, AdamWConfig(lr=lr, warmup_steps=1))
+        params, state, met = step(params, adamw_init(params), {
+            "tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)})
+        runs.append(({k: float(v) for k, v in met.items()},
+                     {n: p.detach().cpu() - before[n]
+                      for n, p in params.named_parameters()},
+                     {part: {n: t.cpu() for n, t in state[part].items()}
+                      for part in ("m", "v")}))
+    (cm, cu, cs), (gm, gu, gs) = runs
+    for k in cm:
+        np.testing.assert_allclose(gm[k], cm[k], atol=1e-4, rtol=1e-4,
+                                   err_msg=k)
+    for n in cu:
+        for part in ("m", "v"):
+            np.testing.assert_allclose(gs[part][n].numpy(),
+                                       cs[part][n].numpy(), atol=1e-7,
+                                       rtol=1e-3, err_msg=f"{part} {n}")
+        d = (gu[n] - cu[n]).abs()
+        big = cs["m"][n].abs() > 1e-7
+        assert bool((d[big] <= 1e-5).all()), n
+        assert bool((d <= 2 * lr).all()), n

@@ -197,7 +197,7 @@ COPIES = ([f"configs/{p.name}" for p in
            if p.name not in ("__init__.py", "base.py")]
           + ["core/allocator.py", "core/reclaim_policy.py", "serving/stats.py",
              "serving/draft.py", "serving/overload.py", "serving/scheduler.py",
-             "serving/traffic.py"])
+             "serving/traffic.py", "data/pipeline.py"])
 
 
 class _StripImports(ast.NodeTransformer):

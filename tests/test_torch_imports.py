@@ -101,6 +101,29 @@ def test_build_model_raises_without_cuda_and_without_device(monkeypatch, arch):
     assert model.init_cache(2, 8, device="cpu")["len"].device.type == "cpu"
 
 
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``launch/train.py`` follows the device rule: no card and no
+    ``--device`` is an error before any weight is made; ``--device cpu``
+    trains."""
+    import argparse
+
+    from repro_torch.launch import train as T
+
+    args = argparse.Namespace(
+        arch="olmo-1b", reduced=True, steps=2, batch=1, seq=8, lr=1e-3,
+        seed=0, log_every=1, ckpt_dir=None, ckpt_every=1, fail_at_step=None,
+        grad_compression="none", data_source="ramp")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.train(args)
+    monkeypatch.setattr("sys.argv", ["train"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.main()  # --device defaults to cuda
+    out = T.train(argparse.Namespace(**vars(args), device="cpu"))
+    assert len(out["history"]) == 2
+    assert out["params"].embed["tok"].device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_missing_gpu(monkeypatch):
     """The CUDA wrappers never fall back: CPU tensors are refused before any
     build, and with no GPU the kernel library refuses to load."""
