@@ -36,7 +36,15 @@ run with a nonzero exit and no result line.
    edge cases (bf16, float32, float32 q over a bf16 arena) and at the
    serving shapes, timed there; kernel 3 over a replicated arena (two
    copies, each shard appending the same K/V to its own) bit for bit one
-   launch over all query heads, timed.
+   launch over all query heads, timed.  Kernel 3 over the per-shard
+   KV-head slabs of a head count the TP degree does not divide (Hq=8,
+   Hkv=2, D=128 over 4 shards: shards 0-1 on a one-head copy of KV head 0,
+   2-3 of head 1; bf16, C = 1 and 16, without and with the fused append):
+   every copy bit for bit its head of the whole launch's arena, the output
+   within kernel 1's tolerance of the plain version and, at C=1, bit for
+   bit one launch over the whole arena (at C=16 the kernel tiles 32 query
+   slots a launch against 64 and its warps sum the keys in another order:
+   the elements that differ are counted).
 3. Parity: reduced olmo-1b and olmoe-1b-7b engines on the card against the
    same engines on the CPU (plain versions), float32 weights: generated
    tokens must agree.  Reduced whisper-tiny, recurrentgemma-9b and
@@ -66,7 +74,18 @@ run with a nonzero exit and no result line.
    as close to float32's as TP=1's do (mean abs difference within 1.25x),
    over the prompt positions and, apart, over the generated positions
    where both still feed the model float32's tokens; the tokens TP=2
-   shares with TP=1 are printed.
+   shares with TP=1 are printed.  Then olmoe-1b-7b at TP=2 under the
+   reference's other expert layouts (``REPRO_MOE_SHARD``): ``ep`` (32
+   whole experts a shard) in float32 and bf16, ``none`` (replicated, the
+   layer run once on the lead) in bf16, each held as above and by its
+   expert bytes per shard (half the whole set under ``ep``); float32
+   ``ep``'s tokens must equal float32 ``tp``'s, its K/V held by the same
+   routing check.  Roofline lines: one steady step of each of the
+   olmo-1b bf16 TP=1 run and the olmoe bf16 ``tp`` and ``ep`` runs goes
+   through ``launch/op_analysis.py`` (the fused launches' work added by
+   ``attention_work``'s rules); its FLOPs and bytes, the H100 bound they
+   give and the mean wall time of the other steady steps as a share of it
+   are printed.
 5. Fleet: full-width olmo-1b (the engine phase's configuration, 16
    requests unless stated) served by ``DataParallelEngine`` with both
    replicas on this card.  Each path has its launch counts set to 0 just
@@ -108,7 +127,9 @@ run with a nonzero exit and no result line.
    set to 0 before, read after).  Printed: prefill ms (cold and warm),
    decode ms/step, tokens/s and peak memory; bf16's greedy tokens equal
    to float32's, and olmo-1b bf16's equal to the paged engine's on the
-   same prompts and weights (its arena is bf16: the equal prefix).
+   same prompts and weights (its arena is bf16: the equal prefix); a
+   roofline line for olmo-1b bf16's prefill and decode step (counted by
+   ``launch/op_analysis.py`` on fake tensors at the same shapes).
 7. Training (h): (1) every reduced config, card against CPU in float32
    with TF32 off, from the same seeded weights and batch: ``Model.loss``
    within 1e-5 + 1e-4|x|, every gradient leaf within 1e-5 + 1e-3|x|, and
@@ -129,7 +150,14 @@ run with a nonzero exit and no result line.
    events), tokens/s, peak memory, checkpoint GB and seconds.  (3)
    mamba2-780m (S=1024) and whisper-tiny (448 tokens over 1500 frames) at
    full width, B=4, 3 steps each through ``make_train_step``: finite
-   losses, peak memory and step times printed.
+   losses, peak memory and step times printed.  A roofline line for
+   olmo-1b's step, counted as phase (g)'s.
+8. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
+   ``decode_32k`` on the production mesh, in a child process that sees no
+   card (started after the build, collected at the end): both records
+   ``ok``, rendered through ``launch/roofline.py``.  The same child counts
+   phases (g)'s and (h)'s olmo-1b steps on fake tensors, off the card's
+   path; their roofline lines print at the end.
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
 sharded kernel 3 and the fused launch; launches from the olmoe-1b-7b bf16
@@ -149,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -557,6 +586,7 @@ def kernel_phase(results):
 
     fused_kernel(results, lens)
     mqa_kernel(results, lens)
+    gqa_slab_kernel(lens)
 
 
 def append_inputs(case, seed, deny=1):
@@ -965,6 +995,91 @@ def mqa_kernel(results, lens):
             f"replicated arena: " + json.dumps(row))
 
 
+GQA_T = 4  # shards of the KV-head-slab case: Hq=8, Hkv=2 over 4 shards
+
+
+def gqa_slab_kernel(lens):
+    """Kernel 3 over the per-shard KV-head slabs of a head count the TP
+    degree does not divide (``sharding/rules.py::kv_heads``): Hq=8, Hkv=2,
+    D=128 over 4 shards of this card, shards 0-1 on a one-head copy of KV
+    head 0 and shards 2-3 of head 1, each launch on its 2 query heads
+    (G=2 against the whole launch's G=4), bf16, C = 1 and 16, without and
+    with the fused append (each shard appending its head's new K/V to its
+    own copy).  Every copy bit for bit its head of the whole launch's
+    arena, and the output within kernel 1's tolerance of the plain
+    version.  Against one launch over the whole arena the output is bit
+    for bit where both launches tile their query slots alike: the
+    kernel's 4 warps split a stage's keys by the number of 16-row query
+    tiles, ceil(C*G/16) (header note, point 3), and so sum in another
+    order at C=16 (2 tiles at G=2 against 4 at G=4); there it is held to
+    the same tolerance and the differing elements are counted."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh(GQA_T, ["cuda:0"] * GQA_T)
+    heads = [s * 2 // GQA_T for s in range(GQA_T)]  # the KV head of shard s
+
+    def slabs(t):  # [.., Hkv, D] -> each shard's one-head copy
+        return [t[:, :, h:h + 1].contiguous() for h in heads]
+
+    for C in (1, 16):
+        q, kp, vp, bt, ln, cl = attention_case(8, C, 8, 2, 128, 16, 512, 512,
+                                               torch.bfloat16, seed=13,
+                                               lens=lens)
+        cl.fill_(C)
+        qs = [t.contiguous() for t in q.chunk(GQA_T, dim=2)]
+        for fused in (False, True):
+            before = paged_attention_sharded.launches
+            if fused:
+                kn, vn, ok = append_inputs((q, kp, vp, bt, ln, cl), seed=13,
+                                           deny=None)
+                full = [kp.clone(), vp.clone()]
+                want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln,
+                                                   cl, ok)
+                copies = [slabs(kp), slabs(vp)]
+                outs = paged_attention_sharded(
+                    qs, *copies, bt, ln, cl, mesh=mesh, n_kv_heads=GQA_T,
+                    append=(slabs(kn), slabs(vn), ok))
+                plain = paged_attention_plain(q, *full, bt, ln, cl)
+            else:
+                want = paged_attention_cuda(q, kp, vp, bt, ln, cl)
+                copies = [slabs(kp), slabs(vp)]
+                outs = paged_attention_sharded(qs, *copies, bt, ln, cl,
+                                               mesh=mesh, n_kv_heads=GQA_T)
+                full = [kp, vp]
+                plain = paged_attention_plain(q, kp, vp, bt, ln, cl)
+            torch.cuda.synchronize()
+            label = (f"kernel 3 on KV-head slabs (Hq=8, Hkv=2, {GQA_T} shards, "
+                     f"C={C}{', fused append' if fused else ''})")
+            check(paged_attention_sharded.launches - before == GQA_T,
+                  f"{label}: one launch per shard")
+            got = torch.cat(outs, dim=2)
+            same_tiles = -(-C * 2 // 16) == -(-C * 4 // 16)
+            off = (got.float() - want.float()).abs()
+            check(torch.equal(got, want) if same_tiles
+                  else off.max().item() <= 2e-2,
+                  f"{label}: differs from one launch over the whole arena "
+                  f"(max {off.max().item()}, query tiles alike: {same_tiles})")
+            check(all(torch.equal(c[s], f[:, :, h:h + 1])
+                      for c, f in zip(copies, full)
+                      for s, h in enumerate(heads)),
+                  f"{label}: a shard's copy differs from its head of the arena")
+            err = (got.float() - plain.float()).abs().max().item()
+            check(err <= 2e-2, f"{label}: max err {err} against the plain "
+                  f"version")
+            log(f"{label}: against one launch over the whole arena "
+                + ("bitwise" if same_tiles else
+                   f"{int((off > 0).sum())} of {off.numel()} elements differ, "
+                   f"max {off.max().item():.3g} (another warp split of the "
+                   f"keys)")
+                + f"; copies bitwise its heads; max err {err:.3g} against "
+                f"the plain version")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: parity of the card against the CPU on a small model
 
@@ -1137,7 +1252,7 @@ def routes_by_position(records, cfg, n_req, tag):
     return sel, gap
 
 
-def routing_check(run, base):
+def routing_check(run, base, names=(f"TP={TP}", "TP=1")):
     """Hold MoE K/V across two runs of the same tokens by their routing.
     A position's K/V at layer l follow from the hidden states of layers
     < l at it and at the positions before it, and from those tokens'
@@ -1198,7 +1313,8 @@ def routing_check(run, base):
                                        float(gap_b[i, l, q]))
                                       for q, l in near]))
     all_gaps = np.concatenate(all_gaps)
-    log(f"{tag}: float32 TP={TP} against TP=1: {n_flips} (layer, position) "
+    log(f"{tag}: float32 {names[0]} against {names[1]}: {n_flips} (layer, "
+        f"position) "
         f"router flips (top-k sets differ) over {n_pos} positions x "
         f"{sel_a.shape[1]} layers; {beyond} of {n_elems} K/V elements beyond "
         f"2e-2 + 2e-2|x|, {cone_beyond} of them outside every flip's "
@@ -1212,8 +1328,8 @@ def routing_check(run, base):
             f"(layer, position) 1% quantile {q[0]:.3g}, median {q[1]:.3g}")
     for i, p, lb, near in firsts:
         log(f"{tag}: request {i}: first K/V off at position {p}, layer {lb}; "
-            f"the nearest flips reaching it (position, layer, gap TP={TP}, "
-            f"gap TP=1): "
+            f"the nearest flips reaching it (position, layer, gap "
+            f"{names[0]}, gap {names[1]}): "
             f"{[(q, l, f'{a:.3g}', f'{b:.3g}') for q, l, a, b in near]}")
     log(f"{tag}: at the {n_agree} positions whose own routing agrees at "
         f"every layer: {agree_beyond} of {agree_elems} K/V elements beyond "
@@ -1228,16 +1344,64 @@ def routing_check(run, base):
           f"reaches has a gap of {widest:.3g}, wider than rounding can cross")
 
 
+def expert_bytes(tree):
+    """Bytes of the MoE expert weights (``w_gate``, ``w_up``, ``w_down``)
+    of a decoder's nested parameter dicts."""
+    return sum(t.numel() * t.element_size() for blk in tree["blocks"]
+               for n, t in blk["moe"].items() if n != "w_router")
+
+
+def step_attention_work(cfg, eng, tp, dtype):
+    """(dict for ``op_analysis.analyze``'s ``extra``) the work of a steady
+    decode step's fused append + attention launches, which a dispatch mode
+    does not see: by :func:`attention_work`'s rules, per layer and shard
+    each live row's K/V of its length + 1 read, its new K/V written, q read
+    and the output written; 4*D operations per (query, key) pair."""
+    import numpy as np
+
+    from repro_torch.sharding.rules import kv_heads
+
+    st = eng.kv_manager.step_state()
+    act, ln = st.active.cpu().numpy(), st.lengths.cpu().numpy()
+    keys, rows = int((ln[act] + 1).sum()), int(act.sum())
+    D = cfg.head_dim
+    hkv, hq = kv_heads(cfg, tp, 0)[1], cfg.n_heads // tp
+    el = (eng.kv[0] if tp > 1 else eng.kv)["k"].element_size()
+    qel = 4 if dtype == "float32" else 2  # q and the output: the weights'
+    per = (2 * keys * hkv * D * el + 2 * rows * hkv * D * el
+           + 2 * rows * hq * D * qel)
+    return {"dot_flops": 4 * D * keys * hq * cfg.n_layers * tp,
+            "hbm_bytes": per * cfg.n_layers * tp}
+
+
+def roofline_line(tag, what, cost, dtype, measured_ms, name):
+    """Log ``op_analysis``'s FLOPs and bytes of one ``what``, the H100
+    bound they give (the larger of bytes at the HBM rate and FLOPs at the
+    ``dtype`` peak) and the measured time's share of it."""
+    b_ms, by = bound_ms(cost["hbm_bytes"], cost["dot_flops"], dtype)
+    log(f"roofline {tag} {what}: {cost['dot_flops'] / 1e9:.4f} GFLOP of "
+        f"products, {cost['hbm_bytes'] / 1e9:.4f} GB of operand traffic "
+        f"({cost['n_ops']} ops), bound {b_ms:.4f} ms ({by}); measured "
+        f"{measured_ms:.3f} ms, the bound {100 * b_ms / measured_ms:.2f}% of "
+        f"it, on {name}")
+
+
 def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
-                 record=(), routes=False):
+                 record=(), routes=False, moe_shard=None, roofline=False):
     """Serve the 8 requests on full-width ``arch`` with ``dtype`` weights;
     ``tp`` > 1 serves them on ``tp`` shards of this card (over replicated
     arena copies where ``tp`` does not divide the KV heads: then the copies
     must be bitwise equal after the run, each the whole arena's bytes).
-    ``record`` names the ``results`` rows whose ``launches`` take this
-    run's counts.  Returns (generated tokens, per request the K/V of every
-    position it wrote — read just before its last step —, the phase's tag,
-    prompt lengths, and with ``routes`` the MoE routing of every position:
+    ``moe_shard`` sets ``REPRO_MOE_SHARD`` while the engine cuts its
+    weights (then each shard's expert bytes are held: half the whole set
+    under ``ep``, all of it under ``data`` and ``none``).  ``record`` names
+    the ``results`` rows whose ``launches`` take this run's counts.  With
+    ``roofline`` one steady step runs under ``op_analysis.analyze`` (the
+    fused launches' work added from :func:`step_attention_work`) and its
+    bound is logged beside the other steady steps' mean wall time.
+    Returns (generated tokens, per request the K/V of every position it
+    wrote — read just before its last step —, the phase's tag, prompt
+    lengths, and with ``routes`` the MoE routing of every position:
     :func:`routes_by_position`)."""
     import gc
 
@@ -1249,6 +1413,7 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     from repro_torch.kernels.paged_attention import (
         paged_attention_append_cuda, paged_attention_cuda,
         paged_attention_sharded)
+    from repro_torch.launch.op_analysis import analyze
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
@@ -1256,6 +1421,7 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     torch.cuda.empty_cache()
     tag = ("engine" if arch == "olmo-1b" else arch) + (
         "" if tp == 1 else f" tp={tp}") + (
+        "" if moe_shard is None else f" {moe_shard}") + (
         "" if dtype == "bfloat16" else f" {dtype}")
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
@@ -1264,8 +1430,23 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
                              device="cuda")
     where = (dict(device="cuda") if tp == 1 else
              dict(tensor_parallel=tp, devices=["cuda:0"] * tp))
-    eng = PagedServingEngine(cfg, params, num_pages=512, page_size=16,
-                             max_batch=8, prefill_chunk=16, **where)
+    if moe_shard is not None:  # read where the engine cuts the weights
+        os.environ["REPRO_MOE_SHARD"] = moe_shard
+    try:
+        eng = PagedServingEngine(cfg, params, num_pages=512, page_size=16,
+                                 max_batch=8, prefill_chunk=16, **where)
+    finally:
+        os.environ.pop("REPRO_MOE_SHARD", None)
+    if moe_shard is not None:
+        whole = expert_bytes(params.tree() if hasattr(params, "tree")
+                             else params)
+        per = [expert_bytes(m.tree()) for m in eng.params]
+        want = whole // tp if moe_shard == "ep" else whole
+        check(eng.mesh.moe_shard == moe_shard and per == [want] * tp,
+              f"{tag}: expert bytes per shard {per}, want {want} "
+              f"(the whole set {whole})")
+        log(f"{tag}: {per[0] / 2**30:.3f} GiB of experts on each of {tp} "
+            f"shards, the whole set {whole / 2**30:.3f} GiB")
     del params  # under tp the engine holds its own shard copies
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
@@ -1291,6 +1472,7 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     for fn in counters:
         fn.launches = 0
     steps = steady = transfers = 0
+    steady_walls, cost = [], None
     kv_rows = {}
     untimed = 0.0
     records = []
@@ -1317,13 +1499,22 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
                 and len(r.generated) + 2 < r.max_new_tokens
                 for r in sched.running))
             if is_steady:
+                count = roofline and steady == 2
+                if count:
+                    work = step_attention_work(cfg, eng, tp, dtype)
+                t1 = time.perf_counter()
                 with warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
                     torch.cuda.set_sync_debug_mode("warn")
                     try:
-                        eng.step()
+                        if count:  # the step's own read ends it
+                            cost = analyze(eng.step, extra=work)
+                        else:
+                            eng.step()
                     finally:
                         torch.cuda.set_sync_debug_mode("default")
+                if not count:
+                    steady_walls.append(time.perf_counter() - t1)
                 syncs = [w for w in caught
                          if "called a synchronizing" in str(w.message)]
                 check(len(syncs) == 1, f"{tag}: steady step {steps} made "
@@ -1368,6 +1559,9 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     log(f"{tag}: {gen / wall:.1f} generated tokens/s, "
         f"{1e3 * wall / steps:.2f} ms/step, on {name}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    if roofline:
+        roofline_line(tag, "steady step", cost, dtype,
+                      1e3 * sum(steady_walls) / len(steady_walls), name)
     if tp > 1 and eng.kv_manager.kv_replicated:
         whole = 2 * cfg.n_layers * 512 * 16 * cfg.n_kv_heads * cfg.head_dim \
             * eng.kv[0]["k"].element_size()
@@ -2003,9 +2197,9 @@ def tp_phase(results, name, arch, record=False):
                           routes=moe)
     one = engine_phase(results, name, arch=arch, record=(
         ("paged_attention", "kv_append", "paged_attention_append")
-        if record else ()))
+        if record else ()), roofline=(arch == "olmo-1b"))
     tp = engine_phase(results, name, tp=TP, arch=arch, record=(
-        ("paged_attention_sharded",) if record else ()))
+        ("paged_attention_sharded",) if record else ()), roofline=moe)
     tag = tp[2]
     # in float32 the two reductions round ~1e-7 apart and the arena's bf16
     # rounding turns that into a K/V element one bf16 step apart now and
@@ -2045,6 +2239,33 @@ def tp_phase(results, name, arch, record=False):
               f"from float32 against TP=1's {e1:.4g} (limit 1.25x)")
         log(f"{tag}: bf16 {part} K/V {e2:.4g} from float32 against TP=1's "
             f"{e1:.4g} ({e2 / e1:.3f}x, limit 1.25x)")
+    return f32_tp
+
+
+def moe_layout_phase(results, name, f32_tp):
+    """Full-width olmoe-1b-7b at ``tensor_parallel=TP`` on this card under
+    the reference's other expert layouts: ``REPRO_MOE_SHARD=ep`` (whole
+    experts a shard: 32 of 64 each) in float32 and bf16, ``none``
+    (replicated: the layer runs once, on the lead) in bf16.  Each run is
+    held as :func:`engine_phase` holds the ``tp`` runs (every request
+    finishes, the clock mirror, layers x shards fused launches a step and
+    no standalone append, one read per steady step) and by its expert
+    bytes per shard; float32 ``ep`` against float32 ``tp`` (``f32_tp``,
+    each expert's hidden axis split): the tokens equal, the K/V held by
+    :func:`routing_check` (the partial sums reassociate, so a router may
+    flip at a near tie).  The bf16 ``ep`` step runs under the roofline."""
+    arch = "olmoe-1b-7b"
+    ep32 = engine_phase(results, name, tp=TP, dtype="float32", arch=arch,
+                        routes=True, moe_shard="ep")
+    engine_phase(results, name, tp=TP, arch=arch, moe_shard="ep",
+                 roofline=True)
+    engine_phase(results, name, tp=TP, arch=arch, moe_shard="none")
+    agree = first_divergence(ep32, f32_tp)
+    log(f"{ep32[2]}: float32 tokens equal tp's before each request's first "
+        f"difference: {sum(agree)} of {sum(map(len, f32_tp[0]))}")
+    check(ep32[0] == f32_tp[0], f"{ep32[2]} float32: tokens differ from the "
+          f"tp layout's (equal before divergences: {agree})")
+    routing_check(ep32, f32_tp, names=("ep", "tp"))
 
 
 # ---------------------------------------------------------------------------
@@ -2193,10 +2414,45 @@ def model_run(cfg, S, dtype, dev="cuda", steps=MODEL_STEPS, seed=0,
     return out
 
 
-def models_phase(name):
+def fake_counts(cfg, kind, B, S, dtype, cache_size=None):
+    """``op_analysis.analyze`` of one ``build_model(cfg)`` step on fake
+    tensors (the CPU, no memory) at the shapes a phase runs on the card:
+    ``kind`` "prefill" (B prompts of S tokens into ``cache_size`` slots),
+    "decode" (one token a row against ``cache_size`` slots) or "train"
+    (``make_train_step`` on a B x S batch); ``dtype`` the parameters'."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, input_specs
+    from repro_torch.launch.abstract import (abstract_cache,
+                                             abstract_opt_state,
+                                             abstract_params, fake_mode)
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    mode = fake_mode()
+    model = build_model(cfg)
+    params = abstract_params(cfg, mode, dtype)
+    batch = input_specs(cfg, ShapeSpec(kind, S, B, kind), mode)
+    with mode:
+        if kind == "train":
+            opt = abstract_opt_state(params, mode)
+            params.requires_grad_(True)
+            return analyze(make_train_step(model, AdamWConfig()), params,
+                           opt, batch)
+        with torch.no_grad():
+            if kind == "prefill":
+                return analyze(model.prefill, params, batch, cache_size)
+            cache = abstract_cache(cfg, B, cache_size, mode)
+            return analyze(model.decode_step, params, cache, batch)
+
+
+def models_phase(name, measured):
     """Phase 6 (g): olmo-1b, mamba2-780m, recurrentgemma-9b and
     whisper-tiny at full width and depth through ``build_model``, float32
-    then bf16 (module docstring)."""
+    then bf16 (module docstring); olmo-1b bf16's warm prefill and decode
+    ms/step go into ``measured`` for their roofline lines."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2225,6 +2481,9 @@ def models_phase(name):
                 f"teacher forcing max abs {r['tf_max_abs']:.3g}, abs+rel "
                 f"{r['tf_tol']:.3g} (limit {tol} in float32); 0 kernel "
                 f"launches")
+            if arch == "olmo-1b" and dtype == torch.bfloat16:
+                measured["prefill"] = 1e3 * r["prefill_s"][1]
+                measured["decode"] = 1e3 * r["decode_s"] / r["timed_steps"]
             if dtype == torch.float32:
                 check(r["tf_tol"] <= tol,
                       f"{tag}: decode vs teacher forcing needs tolerance "
@@ -2251,6 +2510,7 @@ TRAIN_LR = 1e-3  # the card-vs-CPU AdamW step
 #: reference's ``min(50, steps // 10 + 1)`` = 1), the CLI's 1e-3 moves
 #: every weight by ~1e-3 a step and the loss does not fall within 8 steps
 TRAIN_FULL_LR = 1e-4
+TRAIN_FULL_B, TRAIN_FULL_S = 4, 1024  # full-width olmo-1b's batch
 #: full width through make_train_step: arch -> tokens per row
 TRAIN_WIDE = {"mamba2-780m": 1024, "whisper-tiny": 448}
 
@@ -2372,9 +2632,9 @@ def training_probe(steps_checked):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def train_full(name):
+def train_full(name, measured):
     """(h) 2: full-width olmo-1b through ``launch/train.py::train`` (module
-    docstring)."""
+    docstring); its mean steady ms/step goes into ``measured``."""
     import argparse
     import shutil
     import tempfile
@@ -2385,7 +2645,7 @@ def train_full(name):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.optim import adamw_init
 
-    steps, B, S = 8, 4, 1024
+    steps, B, S = 8, TRAIN_FULL_B, TRAIN_FULL_S
     (ROOT / "build").mkdir(exist_ok=True)
     ckdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
     free = shutil.disk_usage(ckdir).free
@@ -2459,6 +2719,7 @@ def train_full(name):
             f"tokens/s, peak {peak:.2f} GiB allocated, {wall:.1f} s wall; "
             f"steps 2 and 3 made no device->host transfer (sync debug "
             f"'error'); 0 kernel launches")
+        measured["train"] = step_ms
         log(f"train: checkpoints of {saves[-1]['bytes'] / 1e9:.2f} GB "
             f"({nbytes / 1e9:.2f} GB of parameters and moments); "
             f"{len(saves)} saves: "
@@ -2580,14 +2841,110 @@ def profile_train(name, steps=2):
         log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
 
 
-def train_phase(name):
+def train_phase(name, measured):
     """Phase 7 (h): training (module docstring).  olmoe-1b-7b and
     recurrentgemma-9b are not trained here: with float32 moments their
     state alone (bf16 parameters, bf16 gradients and two float32 moments,
     12 bytes a parameter: about 83 GB and 113 GB) exceeds one 80 GB card."""
     train_parity()
-    train_full(name)
+    train_full(name, measured)
     train_wide(name)
+
+
+DRYRUN_CELLS = [("olmo-1b", "train_4k"), ("qwen2-72b", "decode_32k")]
+#: the phase (g) and (h) paths counted on fake tensors for their roofline
+#: lines: name -> (tag, what, kind, B, S, cache slots)
+COUNTED = {
+    "prefill": ("models: olmo-1b bfloat16", f"prefill (B={MODEL_B}, "
+                f"S={MODEL_PROMPTS['olmo-1b']})", "prefill", MODEL_B,
+                MODEL_PROMPTS["olmo-1b"],
+                MODEL_PROMPTS["olmo-1b"] + MODEL_STEPS),
+    "decode": ("models: olmo-1b bfloat16", f"decode step (B={MODEL_B}, "
+               f"{MODEL_PROMPTS['olmo-1b'] + MODEL_STEPS} slots)", "decode",
+               MODEL_B, MODEL_PROMPTS["olmo-1b"],
+               MODEL_PROMPTS["olmo-1b"] + MODEL_STEPS),
+    "train": ("train: olmo-1b", f"step (B={TRAIN_FULL_B}, S={TRAIN_FULL_S})",
+              "train", TRAIN_FULL_B, TRAIN_FULL_S, None),
+}
+
+
+def write_counts(path):
+    """:func:`fake_counts` of every :data:`COUNTED` path (olmo-1b, bf16
+    parameters), as JSON at ``path``: run in :func:`start_dryrun`'s child,
+    off the card's critical path."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    torch.set_num_threads(1)
+    cfg = get_config("olmo-1b")
+    out = {}
+    for key, (_, _, kind, B, S, size) in COUNTED.items():
+        c = fake_counts(cfg, kind, B, S, torch.bfloat16, size)
+        out[key] = {k: c[k] for k in ("dot_flops", "hbm_bytes", "n_ops")}
+    pathlib.Path(path).write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """Start ``launch/dryrun.py`` on :data:`DRYRUN_CELLS` (the production
+    mesh) in a child process that sees no card, so it counts on the CPU
+    while the phases run; returns (its output directory, the process)."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    code = ("import sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from repro_torch.launch import dryrun\n" + "".join(
+                f"dryrun.main(['--arch', {a!r}, '--shapes', {sh!r}, "
+                f"'--out-dir', {str(out)!r}])\n" for a, sh in DRYRUN_CELLS)
+            + "import chip_smoke\n"
+            f"chip_smoke.write_counts({str(out / 'counts.json')!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return out, proc
+
+
+def finish_dryrun(out, proc, measured, name):
+    """Wait for :func:`start_dryrun`'s child, hold its records (every cell
+    ``ok``) and log them through ``launch/roofline.py``, then the roofline
+    lines of the :data:`COUNTED` paths against their ``measured`` ms; the
+    records are deleted after."""
+    import shutil
+
+    from repro_torch.launch import roofline
+
+    try:
+        t0 = time.perf_counter()
+        text, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dryrun: exit {proc.returncode}: "
+              f"{text[-2000:]}")
+        for line in text.splitlines():
+            log(f"dryrun: {line}")
+        rows = roofline.build_table(str(out))
+        check(sorted((r["arch"], r["shape"]) for r in rows)
+              == sorted(DRYRUN_CELLS) and all(r["status"] == "ok"
+                                              for r in rows),
+              f"dryrun: records {[(r['arch'], r['shape'], r['status']) for r in rows]}")
+        log(f"dryrun: {len(rows)} cells on the production mesh (counts on "
+            f"the CPU; H100 spec-sheet bounds), waited "
+            f"{time.perf_counter() - t0:.1f} s at the end:")
+        for line in roofline.render_markdown(rows).splitlines():
+            log(f"dryrun: {line}")
+        counts = json.loads((out / "counts.json").read_text())
+        for key, (tag, what, *_) in COUNTED.items():
+            roofline_line(tag, what, counts[key], "bfloat16", measured[key],
+                          name)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def main() -> int:
@@ -2617,6 +2974,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
     sass_check()
+    dry_dir, dry = start_dryrun()
 
     results = {}
     kernel_phase(results)
@@ -2624,11 +2982,13 @@ def main() -> int:
     tp_phase(results, name, "olmo-1b")
     # the MoE main path: its bf16 runs give the kernels line its launch
     # counts (paligemma's are in its own log lines)
-    tp_phase(results, name, "olmoe-1b-7b", record=True)
+    moe_tp = tp_phase(results, name, "olmoe-1b-7b", record=True)
+    moe_layout_phase(results, name, moe_tp)
     tp_phase(results, name, "paligemma-3b")
     walls = fleet_phase(name)
-    models_phase(name)
-    train_phase(name)
+    measured = {}
+    models_phase(name, measured)
+    train_phase(name, measured)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)
@@ -2636,6 +2996,8 @@ def main() -> int:
         profile_phase(name, tp=TP, arch="paligemma-3b")
         profile_fleet(name, walls)
         profile_train(name)
+
+    finish_dryrun(dry_dir, dry, measured, name)
 
     kernels = [results["paged_attention"], results["kv_append"],
                results["paged_attention_sharded"],

@@ -9,7 +9,8 @@ no explicit device they raise (``device.py``).
 Module map (port -> JAX counterpart):
 
 =====================================  =======================================
-``configs/`` (``base.py``, arch files)  ``repro/configs/`` (no ``input_specs``)
+``configs/`` (``base.py``, arch files)  ``repro/configs/`` (``input_specs``
+                                        gives fake tensors)
 ``core/vm.py``                          ``repro/core/vm.py`` (``ReleaseStrategy``
                                         and ``superblock_floor`` only)
 ``core/allocator.py`` (copy)            ``repro/core/allocator.py``
@@ -58,16 +59,30 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
                                         launched once per shard)
 ``kernels/build.py``                    (nvcc build + ctypes load)
 ``launch/mesh.py``                      ``repro/launch/mesh.py``
-                                        (``make_serving_mesh`` only)
+                                        (production and smoke meshes
+                                        abstract: axis sizes, no devices)
+``launch/abstract.py``                  ``jax.eval_shape``: fake tensors
+                                        (``FakeTensorMode``)
+``launch/op_analysis.py``               ``repro/launch/hlo_analysis.py``
+                                        (counts the eager step's aten ops)
+``launch/roofline.py``                  ``repro/launch/roofline.py`` (H100
+                                        spec-sheet rates)
+``launch/dryrun.py``                    ``repro/launch/dryrun.py`` (exact
+                                        argument bytes, the op count split
+                                        ideally; no temporaries, no
+                                        collective term)
 ``launch/serve.py``                     ``repro/launch/serve.py`` (plus
                                         ``--device``)
 ``launch/steps.py``                     ``repro/launch/steps.py``
 ``launch/train.py``                     ``repro/launch/train.py`` (plus
                                         ``--device``; no ``--mesh``)
-``sharding/rules.py``                   ``repro/sharding/rules.py`` (serving
-                                        TP subset: weights, experts'
-                                        hidden axis, paged arena split or
-                                        replicated)
+``sharding/rules.py``                   ``repro/sharding/rules.py``
+                                        (``param_specs``, ``opt_specs``,
+                                        ``batch_specs``, ``cache_specs``
+                                        over an abstract mesh, and the
+                                        serving cut read off them: every
+                                        ``REPRO_MOE_SHARD`` mode; KV heads
+                                        cut by the query slab's heads)
 ``serving/paged_decode.py``             ``repro/serving/paged_decode.py``
 ``serving/kv_manager.py``               ``repro/serving/kv_manager.py``
 ``serving/runner.py``                   ``repro/serving/runner.py``
@@ -85,11 +100,18 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``Request.pages``, which reads a CPU or CUDA block table);
 ``tests/test_torch_engine.py`` pins that.
 
-Not yet ported: the reference's other MoE layouts (``REPRO_MOE_SHARD`` =
-``ep``, ``data``, ``none``); the training half of ``sharding/rules.py``
-(``param_specs`` without ``serving``, ``opt_specs``, ``batch_specs``,
-the ``shard_*`` constraints); ``launch/*`` apart from
-``make_serving_mesh``, ``steps.py``, ``serve.py`` and ``train.py``; the
-host arena and lock-free reclaimers of ``core/`` (``lrmalloc.py``,
-``reclaim.py``, …).
+No counterpart, by design: the reference's GSPMD annotations
+(``sharding/rules.py``'s ``constrain``, ``shard_seq``, ``shard_logits``,
+``shard_experts``, ``to_named``) tell XLA's partitioner how to lay out a
+jitted program; an eager single-controller port has no partitioner, and
+its shards hold the slices they compute with.  ``launch/mesh.py``'s
+``_make_mesh`` and ``mesh_context`` are jax-version shims; the dry run's
+``--save-hlo`` has no HLO to save.
+
+Not yet ported: a sharded training step (a device mesh with FSDP and TP
+over ``torch.distributed``: the dry run's collective term and the
+counterpart of ``tests/test_elastic.py``); the host arena and lock-free
+reclaimers of ``core/`` (``lrmalloc.py``, ``vm.py``'s arena,
+``reclaim.py``, ``atomic.py``, ``datastructures.py``, ``sizeclass.py``:
+framework-free, no device code; ROADMAP A).
 """

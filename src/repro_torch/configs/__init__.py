@@ -14,6 +14,7 @@ from .base import (
     SHAPES,
     cell_supported,
     decode_cache_size,
+    input_specs,
 )
 
 ARCH_IDS = [
@@ -81,4 +82,5 @@ __all__ = [
     "reduced",
     "cell_supported",
     "decode_cache_size",
+    "input_specs",
 ]

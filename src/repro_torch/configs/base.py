@@ -1,9 +1,11 @@
 """Architecture config schema + input-shape taxonomy.
 
 Every assigned architecture is an ``ArchConfig``; the four assigned input
-shapes are ``SHAPES``.  A framework-free copy of ``repro.configs.base``:
-the JAX package's ``input_specs`` (jax ``ShapeDtypeStruct`` stand-ins for
-the dry-run) has no counterpart here.
+shapes are ``SHAPES``.  ``input_specs`` builds fake-tensor stand-ins for
+every model input of a given (arch, shape) cell — shapes and dtypes, zero
+allocation (torch's ``FakeTensorMode``, the counterpart of jax's
+``ShapeDtypeStruct``) — which is what the dry run counts.  The rest is a
+copy of ``repro.configs.base``.
 """
 
 from __future__ import annotations
@@ -115,4 +117,28 @@ def decode_cache_size(cfg: ArchConfig, shape: ShapeSpec) -> int:
     if cfg.family == "hybrid":
         size = min(size, cfg.local_window)
     return size
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, mode=None) -> dict:
+    """Fake tensors (on the CPU, under ``mode``: a ``FakeTensorMode``, a new
+    one by default) standing in for the model-input batch of this cell."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    with mode if mode is not None else FakeTensorMode():
+        if shape.kind in ("train", "prefill"):
+            text = S - cfg.prefix_tokens if cfg.prefix_tokens else S
+            batch = {"tokens": torch.empty((B, text), dtype=i32)}
+            if cfg.family == "audio":
+                batch["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                              dtype=bf16)
+            if cfg.prefix_tokens:
+                batch["patches"] = torch.empty(
+                    (B, cfg.prefix_tokens, cfg.d_model), dtype=bf16)
+            return batch
+        # decode: one new token against a cache of size seq_len
+        return {"token": torch.empty((B,), dtype=i32),
+                "pos": torch.empty((B,), dtype=i32)}
 

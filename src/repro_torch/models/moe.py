@@ -40,9 +40,15 @@ einsums to XLA: this is not one of the repo's Pallas kernels.
 
 Parameters (per layer): ``w_router`` [d, E] float32 whatever the model's
 dtype; ``w_gate``/``w_up`` [E, d, ff] and ``w_down`` [E, ff, d] in the
-model's dtype.  Under tensor parallelism each shard holds an expert-hidden
-slice (``sharding/rules.py``) and :func:`moe_apply` over it gives that
-shard's partial output; the partials sum to the whole layer's output.
+model's dtype.  Under tensor parallelism (``sharding/rules.py``) each shard
+holds the whole router and either an expert-hidden slice of every expert
+(``REPRO_MOE_SHARD=tp``) or its own whole experts ``[e0, e0 + E/T)``
+(``ep``: ``expert0=e0``, ``w_gate`` [E/T, d, ff]); :func:`moe_apply` over
+it gives that shard's partial output, and the partials sum to the whole
+layer's output.  Expert-parallel: every shard routes over all E experts,
+dispatches only the assignments to its own experts (the rest go to the
+trash row) and runs the products of its experts only; capacity and each
+assignment's slot are counted over all E, as in the whole layer.
 """
 
 from __future__ import annotations
@@ -88,10 +94,12 @@ def _route(cfg, x, w_router):
     return probs, gate / gate.sum(-1, keepdim=True), expert
 
 
-def _moe_group(cfg, x, p, dropless: bool = False):
-    """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 [])."""
+def _moe_group(cfg, x, p, dropless: bool = False, expert0: int = 0):
+    """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 []); the
+    products of experts ``[expert0, expert0 + p["w_gate"].shape[0])``."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    El = p["w_gate"].shape[0]
     C = moe_capacity(cfg, S, dropless=dropless)
     probs, gate, expert = _route(cfg, x, p["w_router"])
 
@@ -102,43 +110,54 @@ def _moe_group(cfg, x, p, dropless: bool = False):
     aux = E * torch.sum(probs.mean(dim=(0, 1)) * ce)
 
     # each assignment's slot within its expert, per batch row, in
-    # (token, choice) order; slots past the capacity are dropped
+    # (token, choice) order; slots past the capacity are dropped, and so
+    # (to this call) are assignments to experts it does not hold
     flat_e = expert.reshape(B, S * k)
     pos_in_e = torch.gather(torch.cumsum(onehot, dim=1), 2,
                             flat_e[..., None])[..., 0] - 1  # [B, S*k]
     keep = pos_in_e < C
+    local_e = flat_e
+    if El != E:  # expert parallelism: this call's experts only
+        local_e = flat_e - expert0
+        keep = keep & (local_e >= 0) & (local_e < El)
     rows = torch.arange(B, device=x.device)[:, None]
-    trash = E * B * C
-    dest = torch.where(keep, (flat_e * B + rows) * C + pos_in_e, trash)
+    trash = El * B * C
+    dest = torch.where(keep, (local_e * B + rows) * C + pos_in_e, trash)
 
-    # dispatch: every kept assignment to its own row of [E, B*C, d] (rows no
-    # assignment takes stay 0); dropped ones to the trash row
+    # dispatch: every kept assignment to its own row of [El, B*C, d] (rows
+    # no assignment takes stay 0); dropped ones to the trash row
     src = x[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
     buf = x.new_zeros((trash + 1, d))
     buf.index_copy_(0, dest.reshape(-1), src)
-    eb = buf[:trash].view(E, B * C, d)
+    eb = buf[:trash].view(El, B * C, d)
 
     # expert FFN (swiglu), one batched product per weight
     h = F.silu(torch.bmm(eb, p["w_gate"])) * torch.bmm(eb, p["w_up"])
-    out = torch.bmm(h, p["w_down"]).reshape(E * B * C, d)
+    out = torch.bmm(h, p["w_down"]).reshape(El * B * C, d)
 
-    # gather back (the dropped slot clamped to C - 1, then zeroed) and
-    # combine under the gates
-    src_row = (flat_e * B + rows) * C + torch.clamp(pos_in_e, max=C - 1)
+    # gather back (the dropped slot clamped into the buffer, then zeroed)
+    # and combine under the gates
+    if El != E:
+        local_e = torch.clamp(local_e, 0, El - 1)
+    src_row = (local_e * B + rows) * C + torch.clamp(pos_in_e, max=C - 1)
     gath = out[src_row.reshape(-1)].reshape(B, S * k, d)
     gath = gath * keep[..., None].to(gath.dtype)
     gath = gath * gate.reshape(B, S * k, 1).to(gath.dtype)
     return gath.reshape(B, S, k, d).sum(dim=2), aux
 
 
-def moe_apply(cfg, x, p, group: int = MOE_SEQ_CHUNK, dropless: bool = False):
+def moe_apply(cfg, x, p, group: int = MOE_SEQ_CHUNK, dropless: bool = False,
+              expert0: int = 0):
     """x [B, S, d] -> (y [B, S, d], aux float32 []) over groups of ``group``
     tokens (one group when S <= group or group does not divide S; the aux
     loss is then the groups' mean).  ``dropless=True`` sizes capacity so no
-    assignment is dropped: every inference path passes it."""
+    assignment is dropped: every inference path passes it.  ``p`` holding
+    fewer experts than ``cfg.n_experts`` (expert parallelism) gives the
+    partial output of experts ``expert0`` onward (module docstring)."""
     B, S, d = x.shape
     if S <= group or S % group != 0:
-        return _moe_group(cfg, x, p, dropless=dropless)
-    ys, auxs = zip(*(_moe_group(cfg, x[:, i:i + group], p, dropless=dropless)
+        return _moe_group(cfg, x, p, dropless=dropless, expert0=expert0)
+    ys, auxs = zip(*(_moe_group(cfg, x[:, i:i + group], p, dropless=dropless,
+                                expert0=expert0)
                      for i in range(0, S, group)))
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()

@@ -4,10 +4,13 @@ The port of ``repro.serving.engine``: the same constructor and surface,
 with ``device=`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
 ``tensor_parallel=T, devices=[...]`` serves on T shards
 (``launch/mesh.py``): the engine splits the full parameters it is given by
-``sharding/rules.py``, keeps one contiguous KV slab of Hkv/T heads per
-shard (where T does not divide Hkv, a whole copy of the arena per shard:
-the reference's replicated layout), and keeps the pool and per-slot state
-once on the first device (the reference replicates them over its mesh).
+``sharding/rules.py`` (the experts as ``REPRO_MOE_SHARD`` names, read
+here, as the reference reads it where it cuts its weights), keeps one
+contiguous KV slab per shard — Hkv/T heads, or where T does not divide
+Hkv the one head the shard's query slab reads: for multi-query attention
+a whole copy of the arena per shard, the reference's replicated layout —
+and keeps the pool and per-slot state once on the first device (the
+reference replicates them over its mesh).
 Wiring and delegation over three layers with explicit contracts:
 
 - :class:`repro_torch.serving.scheduler.Scheduler` — continuous-batching
@@ -34,7 +37,8 @@ from repro_torch.core.vm import ReleaseStrategy
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.sharding.rules import kv_split, param_shards
+from repro_torch.sharding.rules import (kv_shards, kv_split, moe_shard_mode,
+                                        param_shards)
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
 from .runner import ModelRunner
@@ -95,7 +99,8 @@ class PagedServingEngine:
                 raise ValueError(
                     "tensor_parallel > 1 takes a `devices` list, not a "
                     "single `device`")
-            self.mesh = make_serving_mesh(self.tensor_parallel, devices)
+            self.mesh = make_serving_mesh(self.tensor_parallel, devices,
+                                          moe_shard=moe_shard_mode())
             self.device = self.mesh.lead
             # ``params``: full weights (a DecoderLM or its nested dicts),
             # split here as the reference's device_put with specs does
@@ -139,7 +144,9 @@ class PagedServingEngine:
             max_pages_per_seq=max_pages_per_seq or num_pages,
             page_size=page_size, stats=self.stats, device=self.device,
             mesh=self.mesh, kv_replicated=(
-                self.mesh is not None and not kv_split(cfg, self.mesh.tp)))
+                self.mesh is not None and not kv_split(cfg, self.mesh.tp)),
+            kv_shards=(kv_shards(cfg, self.mesh.tp)
+                       if self.mesh is not None else None))
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,

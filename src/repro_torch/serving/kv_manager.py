@@ -5,8 +5,9 @@ over the port's tensors.  The per-slot device arrays are updated in place
 by plain tensor writes where the reference runs donated jitted installs.
 Under tensor parallelism (``mesh=``) the per-slot arrays live once, on the
 mesh's lead device (the reference replicates them), and ``kv`` is the list
-of per-shard arena slabs (or whole copies, where the mesh does not divide
-the KV heads); :meth:`KVCacheManager.gather_kv` joins them.
+of per-shard arena slabs (where the mesh does not divide the KV heads,
+each the head its shard's query slab reads: shards reading one head hold
+equal copies); :meth:`KVCacheManager.gather_kv` joins them.
 
 The middle layer of the serving stack (ARCHITECTURE.md):
 
@@ -78,7 +79,8 @@ class KVCacheManager:
 
     def __init__(self, allocator: Allocator, *, kv, max_batch: int,
                  max_pages_per_seq: int, page_size: int, stats: EngineStats,
-                 device=None, mesh=None, kv_replicated: bool = False):
+                 device=None, mesh=None, kv_replicated: bool = False,
+                 kv_shards=None):
         self.allocator = allocator
         self.kv = kv
         self.stats = stats
@@ -86,8 +88,13 @@ class KVCacheManager:
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
         self.mesh = mesh
-        #: under a mesh: every shard holds a whole copy of the arena
+        #: under a mesh: the KV heads are not split evenly (shards share
+        #: heads; multi-query: every shard holds a whole copy)
         self.kv_replicated = kv_replicated
+        #: under a mesh: the shards whose slabs, joined, are the whole arena
+        self.kv_shards = (tuple(kv_shards) if kv_shards is not None
+                          else tuple(range(mesh.tp)) if mesh is not None
+                          else None)
         self.device = mesh.lead if mesh is not None else resolve_device(device)
         B, M = max_batch, max_pages_per_seq
         dev = self.device
@@ -119,14 +126,16 @@ class KVCacheManager:
 
     def gather_kv(self) -> dict:
         """The whole arena {'k','v': [L, P, page, Hkv, D]} on the lead
-        device: the shards' slabs joined on the KV-head axis (tests and the
-        smoke script; never on the serving path).  Without a mesh, the
-        arena itself; over a replicated arena, the lead shard's copy."""
+        device: the slabs of :attr:`kv_shards` joined on the KV-head axis
+        (tests and the smoke script; never on the serving path).  Without a
+        mesh, the arena itself; over a multi-query arena, the lead shard's
+        copy."""
         if self.mesh is None:
             return self.kv
-        if self.kv_replicated:
+        if len(self.kv_shards) == 1:
             return {n: self.kv[0][n] for n in ("k", "v")}
-        return {n: torch.cat([s[n].to(self.device) for s in self.kv], dim=3)
+        return {n: torch.cat([self.kv[s][n].to(self.device)
+                              for s in self.kv_shards], dim=3)
                 for n in ("k", "v")}
 
     def install_state(self, st: DeviceStepState) -> None:

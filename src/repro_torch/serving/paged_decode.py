@@ -17,12 +17,13 @@ window and reads no VLM image patches.
   only per-step device→host transfer is its read of the six [B] results.
 
 Tensor parallelism (``mesh=``, a :class:`repro_torch.launch.mesh.ServingMesh`
-of T shard devices): the KV arena is one contiguous ``[L, P, page, Hkv/T,
-D]`` slab per shard — or, where T does not divide Hkv (multi-query
-attention), one whole ``[L, P, page, Hkv, D]`` copy per shard, the
-reference's replicated layout: every shard computes the same K/V and
-appends them to its own copy — and the model one ``DecoderLM`` of weight
-slices per shard (``sharding/rules.py``).  The pool, the grant, COW
+of T shard devices): the KV arena is one contiguous ``[L, P, page, h, D]``
+slab per shard holding the h KV heads its query slab reads
+(``sharding/rules.py::kv_heads``: Hkv/T heads where T divides Hkv; else
+the one head its query heads share — a whole copy of a multi-query arena,
+the reference's replicated layout — and the shards reading one head
+compute the same K/V and append them to their own copies), and the model
+one ``DecoderLM`` of weight slices per shard (``sharding/rules.py``).  The pool, the grant, COW
 planning, token routing, selection and OA validation run once, on the lead
 device — the reference replicates them and every shard computes the same
 values, so one copy is the same single logical pool.  Per layer each shard
@@ -31,7 +32,9 @@ projects its q/k/v heads, appends to its own slab and attends on its heads
 multiplies by its rows of ``wo``; the partial outputs are summed into the
 residual on the lead device (the reference's ``psum``), and the MLP does
 the same with its ``w_gate``/``w_up`` columns and ``w_down`` rows, the MoE
-layer with each expert's hidden slice.
+layer with each expert's hidden slice (``REPRO_MOE_SHARD=tp``) or its own
+experts (``ep``); replicated experts (``data``, ``none``) run once, on the
+lead.
 
 Where the JAX step donates its state, this one updates it IN PLACE: the KV
 arena (the attention launch's fused append and the COW copy write into
@@ -61,9 +64,8 @@ from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (DECODER_FAMILIES, embed_tokens,
                                             unembed)
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.sharding.rules import (ROW_BIASES, check_heads, kv_split,
-                                        lm_head_split, mlp_split, moe_split,
-                                        paged_kv_axis)
+from repro_torch.sharding.rules import (ROW_BIASES, check_heads, kv_heads,
+                                        lm_head_split, mlp_split, moe_axis)
 
 
 def kv_storage_init(cfg, num_pages: int, page_size: int,
@@ -71,24 +73,23 @@ def kv_storage_init(cfg, num_pages: int, page_size: int,
     """The persistent all-layer KV arena [L, P, page, Hkv, D] (pages stay
     addressable forever; stale reads validate, never fault).
 
-    With ``mesh``: a list of T contiguous slabs [L, P, page, Hkv/T, D], shard
-    s's holding KV heads ``[s·Hkv/T, (s+1)·Hkv/T)`` of every page on
-    ``mesh.devices[s]`` (``sharding.rules.paged_kv_axis``); where T does not
-    divide Hkv, T whole [L, P, page, Hkv, D] copies, one per shard (the
-    reference's replicated layout).  Heads the mesh cannot serve raise
-    ``ValueError`` (``sharding.rules.check_heads``)."""
+    With ``mesh``: a list of T contiguous slabs [L, P, page, h, D], shard
+    s's holding its KV heads (``sharding.rules.kv_heads``: ``[s·Hkv/T,
+    (s+1)·Hkv/T)`` where T divides Hkv, the one its query slab reads
+    otherwise) of every page on ``mesh.devices[s]``.  Heads the mesh cannot
+    serve raise ``ValueError`` (``sharding.rules.check_heads``)."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     if mesh is None:
         dev = resolve_device(device)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
     check_heads(cfg, mesh.tp)
-    local = shape
-    if paged_kv_axis(shape, mesh.tp) is not None:
-        local = shape[:3] + (cfg.n_kv_heads // mesh.tp, cfg.head_dim)
-    return [{"k": torch.zeros(local, dtype=dtype, device=d),
-             "v": torch.zeros(local, dtype=dtype, device=d)}
-            for d in mesh.devices]
+    slabs = []
+    for s, d in enumerate(mesh.devices):
+        local = shape[:3] + (kv_heads(cfg, mesh.tp, s)[1], cfg.head_dim)
+        slabs.append({"k": torch.zeros(local, dtype=dtype, device=d),
+                      "v": torch.zeros(local, dtype=dtype, device=d)})
+    return slabs
 
 
 def max_chunk_pages(chunk_size: int, page_size: int) -> int:
@@ -101,11 +102,12 @@ def max_chunk_pages(chunk_size: int, page_size: int) -> int:
 @functools.cache
 def _local_cfg(cfg, tp: int):
     """The config one of ``tp`` shards computes its heads with: its query
-    heads, and its KV heads (all of them where the arena is replicated)."""
+    heads, and its KV heads (``sharding.rules.kv_heads``; the same count on
+    every shard)."""
     if tp == 1:
         return cfg
-    hkv = cfg.n_kv_heads // tp if kv_split(cfg, tp) else cfg.n_kv_heads
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=hkv)
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=kv_heads(cfg, tp, 0)[1])
 
 
 def _layout(model, kv, mesh, dev):
@@ -134,16 +136,20 @@ def _mlp_partial(cfg, h, p):
 
 def _ffn(cfg, shards, mesh, h, dev):
     """The block's feed-forward output on ``dev``: the shards' MLP or
-    (MoE) dropless expert-layer partials summed (each shard's hidden
-    slice; one shard's whole output where the weights are not split), the
-    row-parallel biases added once after the sum."""
+    (MoE) dropless expert-layer partials summed (each shard's hidden slice,
+    or under expert parallelism its own experts; one shard's whole output
+    where the weights are not split), the row-parallel biases added once
+    after the sum."""
     devs = mesh.devices
     if cfg.moe:
         # dropless: the serving path computes the same per-token function
         # whatever the chunk width (decode-parity contract)
-        n = mesh.tp if moe_split(cfg, mesh.tp) else 1
+        ax = moe_axis(cfg, mesh.tp, mesh.moe_shard)
+        n = 1 if ax is None else mesh.tp
+        per = cfg.n_experts // mesh.tp if ax == 0 else 0
         return _reduce([moe_apply(cfg, h.to(devs[s], non_blocking=True),
-                                  shards[s].moe, dropless=True)[0]
+                                  shards[s].moe, dropless=True,
+                                  expert0=s * per)[0]
                         for s in range(n)], dev)
     n = mesh.tp if mlp_split(cfg, mesh.tp) else 1
     y = _reduce([_mlp_partial(cfg, h.to(devs[s], non_blocking=True),

@@ -528,3 +528,88 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
         big = cs["m"][n].abs() > 1e-7
         assert bool((d[big] <= 1e-5).all()), n
         assert bool((d <= 2 * lr).all()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_sharded_attention_on_kv_head_slabs(cuda, C, fused):
+    """Hq=8, Hkv=2 over 4 shards on one card (``sharding/rules.py::
+    kv_heads``): shards 0-1 on a one-head copy of KV head 0, 2-3 of head
+    1, each launch on its 2 query heads (with the fused append into its
+    own copy).  Every copy equals its head of one launch over the whole
+    arena; the joined output equals that launch's bit for bit where both
+    tile their query slots alike (C=1: one 16-row tile each; at C=16 the
+    kernel's warps split the keys by ceil(C*G/16) tiles, 2 against 4, and
+    sum in another order: within bf16's tolerance there), and the plain
+    version within bf16's tolerance."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(2, 16, C, 8, 2, 128, seed=50 + C)]
+    q, k, v, kn, vn = (a.to(torch.bfloat16) for a in (q, k, v, kn, vn))
+    mesh = make_serving_mesh(4, [cuda] * 4)
+    heads = [0, 0, 1, 1]
+
+    def slabs(t):
+        return [t[:, :, h:h + 1].contiguous() for h in heads]
+    qs = [t.contiguous() for t in q.chunk(4, dim=2)]
+    full = [k.clone(), v.clone()]
+    copies = [slabs(k), slabs(v)]
+    before = paged_attention_sharded.launches
+    if fused:
+        want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln, cl, ok)
+        outs = paged_attention_sharded(qs, *copies, bt, ln, cl, mesh=mesh,
+                                       n_kv_heads=4,
+                                       append=(slabs(kn), slabs(vn), ok))
+    else:
+        want = paged_attention_cuda(q, *full, bt, ln, cl)
+        outs = paged_attention_sharded(qs, *copies, bt, ln, cl, mesh=mesh,
+                                       n_kv_heads=4)
+    assert paged_attention_sharded.launches - before == 4
+    got = torch.cat(outs, dim=2)
+    if -(-C * 2 // 16) == -(-C * 4 // 16):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+    for c, f in zip(copies, full):
+        for s, h in enumerate(heads):
+            assert torch.equal(c[s], f[:, :, h:h + 1])
+    plain = paged_attention_plain(q, *full, bt, ln, cl)
+    torch.testing.assert_close(want.float(), plain.float(), atol=2e-2,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_expert_parallel_engine_matches_cpu(cuda, monkeypatch):
+    """Reduced olmoe-1b-7b at tensor_parallel=2 under
+    ``REPRO_MOE_SHARD=ep`` (4 whole experts a shard), both shards on one
+    card, generates the CPU engine's tokens under the same layout (float32
+    weights), with the same steps and preemptions."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    params = init_decoder_lm(cfg, seed=4, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(3, 14, 5)]
+    out = []
+    for dev in (cuda, "cpu"):
+        monkeypatch.setenv("REPRO_MOE_SHARD", "ep")
+        eng = PagedServingEngine(cfg, params, num_pages=10, page_size=4,
+                                 max_batch=3, prefill_chunk=8,
+                                 tensor_parallel=2, devices=[dev, dev])
+        monkeypatch.delenv("REPRO_MOE_SHARD")
+        assert eng.params[0].blocks[0].moe["w_gate"].shape[0] == \
+            cfg.n_experts // 2
+        reqs = [eng.submit(p, 6) for p in prompts]
+        st = eng.run()
+        assert st.warnings_fired == int(eng.pool.clock.cpu())
+        out.append(([r.generated for r in reqs], st.steps, st.preemptions))
+    assert out[0] == out[1]
