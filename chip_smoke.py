@@ -152,12 +152,35 @@ run with a nonzero exit and no result line.
    full width, B=4, 3 steps each through ``make_train_step``: finite
    losses, peak memory and step times printed.  A roofline line for
    olmo-1b's step, counted as phase (g)'s.
-8. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
+8. The sharded step (i): ``init_distributed`` over NCCL at world size 1,
+   ``make_device_mesh((1, 1))`` on the card, and full-width olmo-1b (B=4,
+   S=1024) through ``launch/steps.py::sharded`` against the same work
+   unsharded from the same weights.  (1) float32 with TF32 off: the loss
+   and every gradient of step 1 within 1e-4 abs+rel, and each
+   parameter's change by one ``make_train_step`` within 1e-3 relative L2
+   of the unsharded change (a skipped update gives 1, a flipped one 2).
+   (2) bf16, printed: which of step 1's gradient leaves are bitwise, and
+   the sharded path's ``global_norm`` and vocab-parallel cross-entropy
+   against their plain versions on the same values.  (3) bf16 parameters,
+   float32 moments, ``make_train_step`` with ``step_specs`` for 3 steps of
+   ramp data: each loss within 1e-5 + 1e-4|x| (phase (h)'s), each
+   parameter's change from its initial value within 0.5 relative L2 of
+   the unsharded change, the third step free of device->host transfers
+   (sync debug mode "error"), every parameter a DTensor on the mesh
+   afterwards, no kernel launched.  Printed: whether losses and
+   parameters are bitwise, ms/step of both beside phase (h)'s.  The process group is
+   destroyed afterwards.  (A card cannot hold two NCCL ranks: multi-rank
+   runs are the CPU tests' gloo worlds.)
+9. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
    ``decode_32k`` on the production mesh, in a child process that sees no
-   card (started after the build, collected at the end): both records
-   ``ok``, rendered through ``launch/roofline.py``.  The same child counts
-   phases (g)'s and (h)'s olmo-1b steps on fake tensors, off the card's
-   path; their roofline lines print at the end.
+   card (started after the build, collected at the end): each cell's
+   sharded step runs as rank 0 of a fake process group of 256 ranks.
+   Both records ``ok``, their collective bytes by kind and their dot
+   FLOPs equal to the CPU container's (:data:`DRYRUN_COLLECTIVES`,
+   :data:`DRYRUN_DOT_FLOPS`), rendered through
+   ``launch/roofline.py``.  The same child counts phases (g)'s and (h)'s
+   olmo-1b steps on fake tensors, off the card's path; their roofline
+   lines print at the end.
 
 The second-to-last line is the ``kernels`` JSON (kernel 1, kernel 2, the
 sharded kernel 3 and the fused launch; launches from the olmoe-1b-7b bf16
@@ -2851,7 +2874,299 @@ def train_phase(name, measured):
     train_wide(name)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_steps(step, params, state, batches, tag):
+    """``step`` over ``batches`` (the third one under sync debug mode
+    "error": a steady step must make no device->host transfer) -> (params,
+    state, losses, ms per step by CUDA events)."""
+    import torch
+
+    losses, events = [], []
+    for i, batch in enumerate(batches):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if i == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            params, state, met = step(params, state, batch)
+            b.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses.append(met["loss"])
+        events.append((a, b))
+    torch.cuda.synchronize()
+    losses = [float(getattr(x, "to_local", lambda: x)()) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: non-finite loss {losses}")
+    return params, state, losses, [a.elapsed_time(b) for a, b in events]
+
+
+def loss_grads(model):
+    """(params, batch) -> (the loss, name -> its gradient) of ``model``."""
+    import torch
+
+    def fn(params, batch):
+        loss, _ = model.loss(params, batch)
+        names, leaves = zip(*params.named_parameters())
+        return loss.detach(), dict(zip(names, torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+    return fn
+
+
+def sharded_f32(model, mesh, opt_cfg, batch):
+    """(i) 1: float32 with TF32 off, from the same weights: the loss and
+    every gradient of ``sharded`` against the unsharded within 1e-4
+    abs+rel, and each parameter's change by one ``make_train_step``
+    within 1e-3 of the unsharded change (relative L2 a parameter: an
+    update skipped gives 1, one of flipped sign 2)."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step, sharded, step_specs
+    from repro_torch.optim import adamw_init
+
+    cfg = model.cfg
+
+    def fresh():
+        return model.init(seed=0, dtype=torch.float32,
+                          device="cuda").requires_grad_(True)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, want_g = loss_grads(model)(fresh(), batch)
+        params = fresh()
+        ins, _ = step_specs(cfg, "train", mesh, params, batch)
+        got, got_g = sharded(loss_grads(model), mesh, (ins[0], ins[2]),
+                             (None, None))(params, batch)
+        got = float(got.to_local())
+        check(abs(got - float(want)) <= 1e-4 + 1e-4 * abs(float(want)),
+              f"sharded f32: loss {got!r} against {float(want)!r}")
+        gerr, gbit = 0.0, True
+        for n, g in want_g.items():
+            h = got_g[n].to_local()
+            check(bool(((h - g).abs() <= 1e-4 + 1e-4 * g.abs()).all()),
+                  f"sharded f32: gradient {n} off by "
+                  f"{float((h - g).abs().max()):.3g}")
+            gerr, gbit = max(gerr, float((h - g).abs().max())), \
+                gbit and torch.equal(h, g)
+        del want_g, got_g, params
+        step = make_train_step(model, opt_cfg)
+        p0 = {n: p.detach().clone() for n, p in fresh().named_parameters()}
+        params = fresh()
+        params, _, _ = step(params, adamw_init(params), batch)
+        want_d = {n: p.detach() - p0[n] for n, p in params.named_parameters()}
+        params = fresh()
+        params, _, _ = sharded(step, mesh, *step_specs(
+            cfg, "train", mesh, params, batch))(params, adamw_init(params),
+                                                batch)
+        worst = 0.0
+        for n, p in params.named_parameters():
+            d, w = p.to_local().detach() - p0[n], want_d[n]
+            r = float((d - w).norm() / w.norm())
+            check(r <= 1e-3, f"sharded f32: parameter {n}'s change "
+                  f"{r:.3g} (relative L2) off the unsharded change")
+            worst = max(worst, r)
+        log(f"sharded: float32 (TF32 off), step 1 from the same weights: "
+            f"loss {got!r} against {float(want)!r}; gradients max abs "
+            f"difference {gerr:.3g} ({'bitwise' if gbit else 'not bitwise'}"
+            f"; held within 1e-4 abs+rel); one step's parameter changes "
+            f"within {worst:.3g} relative L2 of the unsharded (held: 1e-3)")
+        del params, want_d, p0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc_cuda()
+
+
+def sharded_bf16_parts(model, mesh, batch):
+    """(i) 2, printed: where bf16's sharded and unsharded steps part.
+    Step 1's gradients leaf by leaf (which are bitwise); the sharded
+    path's ``global_norm`` and vocab-parallel cross-entropy
+    (``models/model.py::_ce_chunk`` under the mesh) against their plain
+    versions on the same values."""
+    import torch
+
+    from repro_torch.launch.steps import sharded, step_specs
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import global_norm
+
+    cfg = model.cfg
+
+    def fresh():
+        return model.init(seed=0, dtype=torch.bfloat16,
+                          device="cuda").requires_grad_(True)
+
+    base = fresh()
+    want, want_g = loss_grads(model)(base, batch)
+    params = fresh()
+    ins, _ = step_specs(cfg, "train", mesh, params, batch)
+    got, got_g = sharded(loss_grads(model), mesh, (ins[0], ins[2]),
+                         (None, None))(params, batch)
+    local = {n: g.to_local() for n, g in got_g.items()}
+    parted = [n for n, g in want_g.items() if not torch.equal(g, local[n])]
+    equal = sum(int((g == local[n]).sum()) for n, g in want_g.items())
+    total = sum(g.numel() for g in want_g.values())
+    leaves = len(want_g)
+    norm_plain, norm_placed = global_norm(local), global_norm(got_g)
+    norm_placed = norm_placed.to_local()
+    del want_g, got_g, local, params
+    # one loss chunk of random hidden states against the tied table
+    g = torch.Generator(device="cuda").manual_seed(2)
+    c = min(cfg.loss_chunk, batch["tokens"].shape[1] - 1)
+    h = torch.randn(batch["tokens"].shape[0], c, cfg.d_model, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    w = base.embed["tok"].detach().T
+    del base
+    lbl = batch["tokens"][:, 1:c + 1].long()
+    msk = torch.ones(lbl.shape, device="cuda")
+
+    def ce(h, w, lbl, msk):
+        h, w = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        nll = M._ce_chunk(h, w, lbl, msk)
+        return (nll.detach(), *torch.autograd.grad(nll, (h, w)))
+    plain = ce(h, w, lbl, msk)
+    dp = (("data",), None, None)
+    placed = sharded(ce, mesh, (dp, (None, "model"), dp[:2], dp[:2]),
+                     None)(h, w, lbl, msk)
+    same = [torch.equal(a, b.to_local()) for a, b in zip(plain, placed)]
+    log(f"sharded: bf16 step 1 from the same weights: loss "
+        f"{float(got.to_local())!r} against {float(want)!r}; gradients "
+        f"{equal} of {total} elements bitwise ({100 * equal / total:.4f}%), "
+        f"{len(parted)} of {leaves} leaves not bitwise "
+        f"({parted[:6]}{' ...' if len(parted) > 6 else ''}); global_norm "
+        f"of the sharded gradients as DTensors {float(norm_placed)!r} and "
+        f"as plain tensors {float(norm_plain)!r} "
+        f"({'bitwise' if torch.equal(norm_placed, norm_plain) else 'not bitwise'}"
+        f"); the vocab-parallel cross-entropy of one {c}-token chunk against "
+        f"the plain one, bitwise: loss {same[0]}, hidden gradient "
+        f"{same[1]}, table gradient {same[2]}")
+    gc_cuda()
+
+
+def sharded_train_phase(name, measured):
+    """Phase 8 (i): the sharded training step (module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+    from repro_torch.launch.steps import make_train_step, sharded, step_specs
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc_cuda()
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg)
+    B, S, lr = TRAIN_FULL_B, TRAIN_FULL_S, TRAIN_FULL_LR
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=8)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                    global_batch=B, source="ramp"))
+    batches = [{"tokens": torch.from_numpy(pipe.next()["tokens"]).cuda()}
+               for _ in range(SHARDED_STEPS)]
+
+    def fresh():
+        params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+        params.requires_grad_(True)
+        return params, adamw_init(params)
+
+    reset_launches()
+    init_distributed(rank=0, world_size=1, device_type="cuda",
+                     port=free_port())
+    try:
+        mesh = make_device_mesh((1, 1), device_type="cuda")
+        sharded_f32(model, mesh, opt_cfg, batches[0])
+        sharded_bf16_parts(model, mesh, batches[0])
+        params, state, want, plain_ms = train_steps(
+            make_train_step(model, opt_cfg), *fresh(), batches,
+            "sharded: plain")
+        want_params = {n: p.detach().clone()
+                       for n, p in params.named_parameters()}
+        del params, state
+        gc_cuda()
+        params, state = fresh()
+        step = sharded(make_train_step(model, opt_cfg), mesh,
+                       *step_specs(cfg, "train", mesh, params, batches[0]))
+        params, state, got, ms = train_steps(step, params, state, batches,
+                                             "sharded")
+        launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+        check(not any(launches.values()),
+              f"sharded: the training path launched kernels {launches}")
+        check(all(isinstance(p, DTensor) and p.device_mesh == mesh
+                  for p in params.parameters()),
+              "sharded: a parameter left the mesh")
+        for i, (x, y) in enumerate(zip(got, want)):
+            check(abs(x - y) <= 1e-5 + 1e-4 * abs(y),
+                  f"sharded: step {i} loss {x!r} against {y!r} unsharded")
+        worst, equal, total = 0.0, 0, 0
+        init = dict(model.init(seed=0, dtype=torch.bfloat16,
+                               device="cuda").named_parameters())
+        ratios = {}
+        for n, p in params.named_parameters():
+            p, q = p.to_local().detach(), want_params[n]
+            worst = max(worst, float((p.float() - q.float()).abs().max()))
+            equal += int((p == q).sum())
+            total += p.numel()
+            d, w = (p.float() - init[n].float(), q.float() - init[n].float())
+            ratios[n] = float((d - w).norm() / w.norm())
+        del init
+        far = max(ratios, key=ratios.get)
+        # bf16 roundings part the two runs at step 1 (the vocab-parallel
+        # cross-entropy's backward, (i) 2); an update skipped gives 1, one
+        # of flipped sign 2
+        check(ratios[far] <= 0.5, f"sharded: parameter {far}'s change "
+              f"{ratios[far]:.3g} (relative L2) off the unsharded change")
+        steady, plain = ms[1:], plain_ms[1:]
+        step_ms = sum(steady) / len(steady)
+        measured["sharded"] = step_ms
+        log(f"sharded: olmo-1b full width, B={B} S={S}, {SHARDED_STEPS} "
+            f"steps of make_train_step through launch/steps.py::sharded on a "
+            f"(data=1, model=1) DeviceMesh over NCCL (world size 1) on "
+            f"{name}, against the same steps unsharded from the same "
+            f"weights: losses {got} against {want} "
+            f"({'bitwise' if got == want else 'not bitwise'}); parameters "
+            f"{equal} of {total} bitwise equal ({100 * equal / total:.4f}%), "
+            f"max abs difference {worst:.3g}; each parameter's change from "
+            f"its initial value off the unsharded change by at most "
+            f"{ratios[far]:.3g} relative L2 ({far}), median "
+            f"{sorted(ratios.values())[len(ratios) // 2]:.3g}; the third "
+            f"step made no device->host transfer (sync debug 'error'); 0 "
+            f"kernel launches")
+        log(f"sharded: {step_ms:.1f} ms/step sharded against "
+            f"{sum(plain) / len(plain):.1f} ms/step unsharded (CUDA events, "
+            f"mean of steps 2-{SHARDED_STEPS}; all: "
+            f"{[round(x, 1) for x in ms]} and "
+            f"{[round(x, 1) for x in plain_ms]}); phase (h)'s train(): "
+            f"{measured['train']:.1f} ms/step, on {name}")
+        del params, state, step, want_params
+    finally:
+        dist.destroy_process_group()
+    gc_cuda()
+
+
+SHARDED_STEPS = 3
 DRYRUN_CELLS = [("olmo-1b", "train_4k"), ("qwen2-72b", "decode_32k")]
+#: the collective bytes a device of :data:`DRYRUN_CELLS` moves, by kind, as
+#: ``python -m repro_torch.launch.dryrun`` counts them on the CPU container
+#: (PyTorch 2.13): the card's machine must count the same
+DRYRUN_COLLECTIVES = {
+    ("olmo-1b", "train_4k"): {"all-gather": 27193245696.0,
+                              "reduce-scatter": 21877489664.0,
+                              "all-reduce": 827326496.0},
+    ("qwen2-72b", "decode_32k"): {"all-gather": 7955955712.0,
+                                  "all-reduce": 83886080.0},
+}
+#: their dot FLOPs a device, as the CPU container counts them: held too, as
+#: DTensor's shape propagation, counted, would show there
+DRYRUN_DOT_FLOPS = {("olmo-1b", "train_4k"): 46256797777920.0,
+                    ("qwen2-72b", "decode_32k"): 114408030208.0}
 #: the phase (g) and (h) paths counted on fake tensors for their roofline
 #: lines: name -> (tag, what, kind, B, S, cache slots)
 COUNTED = {
@@ -2931,6 +3246,23 @@ def finish_dryrun(out, proc, measured, name):
               == sorted(DRYRUN_CELLS) and all(r["status"] == "ok"
                                               for r in rows),
               f"dryrun: records {[(r['arch'], r['shape'], r['status']) for r in rows]}")
+        for r in rows:
+            rec = json.loads((out / f"{r['arch']}_{r['shape']}_pod16x16.json")
+                             .read_text())["hlo"]
+            want = DRYRUN_COLLECTIVES[(r["arch"], r["shape"])]
+            check(r["collective_s"] is not None
+                  and rec["collective_bytes"] == want,
+                  f"dryrun: {r['arch']} {r['shape']} collective bytes "
+                  f"{rec['collective_bytes']}, the CPU container's {want}")
+            flops = DRYRUN_DOT_FLOPS[(r["arch"], r["shape"])]
+            check(rec["dot_flops"] == flops,
+                  f"dryrun: {r['arch']} {r['shape']} dot FLOPs "
+                  f"{rec['dot_flops']!r}, the CPU container's {flops!r}")
+            log(f"dryrun: {r['arch']} {r['shape']}: a device's collectives "
+                f"{rec['collective_bytes']} bytes in "
+                f"{rec['collective_counts']} calls and {rec['dot_flops']!r} "
+                f"dot FLOPs (equal to the CPU container's), "
+                f"{r['collective_s']:.4f} s at NVLink's 450 GB/s")
         log(f"dryrun: {len(rows)} cells on the production mesh (counts on "
             f"the CPU; H100 spec-sheet bounds), waited "
             f"{time.perf_counter() - t0:.1f} s at the end:")
@@ -2989,6 +3321,7 @@ def main() -> int:
     measured = {}
     models_phase(name, measured)
     train_phase(name, measured)
+    sharded_train_phase(name, measured)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)

@@ -35,11 +35,12 @@ Module map (port -> JAX counterpart):
                                         (``build_model``, ``Model`` with
                                         ``loss``)
 ``optim/adamw.py``                      ``repro/optim/adamw.py`` (state by
-                                        parameter name, updated in place)
+                                        parameter name, updated in place;
+                                        on DTensors ZeRO-1's moments)
 ``data/pipeline.py`` (copy)             ``repro/data/pipeline.py``
 ``checkpoint/manager.py``               ``repro/checkpoint/manager.py`` (the
-                                        same on-disk format; ``device=``
-                                        for ``shardings=``)
+                                        same on-disk format; ``device=``,
+                                        and ``shardings=`` onto any mesh)
 ``convert.py``                          the weight (and AdamW state) bridge
                                         from the JAX pytree
 ``kernels/ref.py``                      ``repro/kernels/ref.py``
@@ -60,27 +61,35 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``kernels/build.py``                    (nvcc build + ctypes load)
 ``launch/mesh.py``                      ``repro/launch/mesh.py``
                                         (production and smoke meshes
-                                        abstract: axis sizes, no devices)
+                                        abstract; ``make_device_mesh``,
+                                        ``init_distributed``,
+                                        ``mesh_context``)
 ``launch/abstract.py``                  ``jax.eval_shape``: fake tensors
-                                        (``FakeTensorMode``)
+                                        (``FakeTensorMode``); a fake
+                                        process group for the dry run
 ``launch/op_analysis.py``               ``repro/launch/hlo_analysis.py``
-                                        (counts the eager step's aten ops)
+                                        (counts the eager step's aten ops
+                                        and collectives, a device's share)
 ``launch/roofline.py``                  ``repro/launch/roofline.py`` (H100
                                         spec-sheet rates)
 ``launch/dryrun.py``                    ``repro/launch/dryrun.py`` (exact
-                                        argument bytes, the op count split
-                                        ideally; no temporaries, no
-                                        collective term)
+                                        argument bytes, the sharded step
+                                        counted on a fake process group;
+                                        no temporaries)
 ``launch/serve.py``                     ``repro/launch/serve.py`` (plus
                                         ``--device``)
-``launch/steps.py``                     ``repro/launch/steps.py``
+``launch/steps.py``                     ``repro/launch/steps.py``, and
+                                        ``sharded``: ``jax.jit(step,
+                                        in_shardings=, out_shardings=)``
 ``launch/train.py``                     ``repro/launch/train.py`` (plus
                                         ``--device``; no ``--mesh``)
 ``sharding/rules.py``                   ``repro/sharding/rules.py``
                                         (``param_specs``, ``opt_specs``,
-                                        ``batch_specs``, ``cache_specs``
-                                        over an abstract mesh, and the
-                                        serving cut read off them: every
+                                        ``batch_specs``, ``cache_specs``,
+                                        ``to_named`` as ``to_placed``, the
+                                        annotations as DTensor
+                                        redistributions, and the serving
+                                        cut read off the specs: every
                                         ``REPRO_MOE_SHARD`` mode; KV heads
                                         cut by the query slab's heads)
 ``serving/paged_decode.py``             ``repro/serving/paged_decode.py``
@@ -100,18 +109,19 @@ the ``.cu``'s append mode)              serving path kernel 2's work runs
 ``Request.pages``, which reads a CPU or CUDA block table);
 ``tests/test_torch_engine.py`` pins that.
 
-No counterpart, by design: the reference's GSPMD annotations
-(``sharding/rules.py``'s ``constrain``, ``shard_seq``, ``shard_logits``,
-``shard_experts``, ``to_named``) tell XLA's partitioner how to lay out a
-jitted program; an eager single-controller port has no partitioner, and
-its shards hold the slices they compute with.  ``launch/mesh.py``'s
-``_make_mesh`` and ``mesh_context`` are jax-version shims; the dry run's
-``--save-hlo`` has no HLO to save.
+The sharded step is the reference's GSPMD program run eagerly on
+DTensors: every rank of a ``torch.distributed`` ``DeviceMesh`` runs the
+same step (``launch/steps.py::sharded``), the specs place its arguments,
+the annotations (``constrain``, ``shard_seq``, ``shard_logits``,
+``shard_experts``) redistribute under ``launch/mesh.py::mesh_context``,
+and the regions DTensor has no rule for run on each rank's shards
+(``sharding/rules.py::local``).  The serving engine's tensor parallelism
+stays the single-controller cut (one host thread, a shard a device).
+No counterpart: ``launch/mesh.py``'s ``_make_mesh`` (a jax-version shim);
+the dry run's ``--save-hlo`` has no HLO to save.
 
-Not yet ported: a sharded training step (a device mesh with FSDP and TP
-over ``torch.distributed``: the dry run's collective term and the
-counterpart of ``tests/test_elastic.py``); the host arena and lock-free
-reclaimers of ``core/`` (``lrmalloc.py``, ``vm.py``'s arena,
-``reclaim.py``, ``atomic.py``, ``datastructures.py``, ``sizeclass.py``:
-framework-free, no device code; ROADMAP A).
+Not yet ported: the host arena and lock-free reclaimers of ``core/``
+(``lrmalloc.py``, ``vm.py``'s arena, ``reclaim.py``, ``atomic.py``,
+``datastructures.py``, ``sizeclass.py``: framework-free, no device code;
+ROADMAP A).
 """

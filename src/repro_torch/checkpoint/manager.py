@@ -16,8 +16,16 @@ tree (the same leaf keys):
   synchronously (consistent), the disk write happens on a background
   thread so the train loop resumes immediately; a write's error surfaces
   on the next ``save``/``wait``;
-- ``restore(device=...)`` places every leaf on ``device`` (the reference's
-  ``shardings=``), and a missing leaf or a shape mismatch fails loudly.
+- ``restore(device=...)`` places every leaf on ``device``, and a missing
+  leaf or a shape mismatch fails loudly;
+- sharded trees (DTensor leaves, ``launch/steps.py::sharded``): ``save``
+  gathers each leaf whole on every rank (a collective: every rank calls
+  ``save``), rank 0 alone copies them to the host and writes the one
+  checkpoint (the others' ``last_save`` counts 0 bytes), and the next
+  ``wait`` (a blocking save's own) is a barrier, so every rank then sees
+  the commit; ``restore(shardings=...)`` places each leaf on its mesh by
+  its placements (``sharding/rules.py::to_placed``), whatever mesh saved
+  it — the reference's ``shardings=``, its elastic re-placement.
 
 Trees are nested dicts, lists and tuples of tensors and ``nn.Module``s.
 A leaf's key is its path joined by ``/`` (dict keys, sequence indices,
@@ -37,7 +45,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import rules
 
 
 def _flatten(tree, prefix=()):
@@ -57,11 +69,25 @@ def _flatten(tree, prefix=()):
 
 def _rebuild(tree, leaves: dict, prefix=()):
     """``tree``'s structure with its tensors replaced from ``leaves``
-    (path -> tensor); a module's parameters are copied into it."""
+    (path -> tensor); a module's parameters are copied into it (a DTensor
+    leaf replaces a parameter of other placements)."""
     if isinstance(tree, nn.Module):
         with torch.no_grad():
-            for n, p in tree.named_parameters():
-                p.copy_(leaves[prefix + tuple(n.split("."))])
+            for n, p in list(tree.named_parameters()):
+                new = leaves[prefix + tuple(n.split("."))]
+                if isinstance(new, DTensor) and not (
+                        isinstance(p, DTensor)
+                        and p.device_mesh == new.device_mesh
+                        and p.placements == new.placements):
+                    owner, _, leaf = n.rpartition(".")
+                    mod = tree.get_submodule(owner) if owner else tree
+                    par = nn.Parameter(new, requires_grad=p.requires_grad)
+                    if isinstance(mod, nn.ParameterDict):
+                        mod[leaf] = par
+                    else:
+                        setattr(mod, leaf, par)
+                else:
+                    p.copy_(new)
         return tree
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves, prefix + (str(k),))
@@ -83,6 +109,29 @@ def _from_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
         getattr(torch, dtype)).reshape(shape)
 
 
+def _whole(x) -> torch.Tensor:
+    """The whole tensor of a DTensor leaf (gathered), a tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _placed_for(shardings, path):
+    """The placement (``rules.Placed``) ``shardings`` gives the leaf at
+    ``path``: nested dicts, lists and tuples followed key by key, a
+    module's dict by the dotted parameter name of the rest of the path."""
+    node = shardings
+    for i, k in enumerate(path):
+        if isinstance(node, rules.Placed):
+            break
+        if isinstance(node, dict):
+            rest = ".".join(path[i:])
+            if rest in node:
+                return node[rest]
+            node = node[k]
+        else:
+            node = node[int(k)]
+    return node
+
+
 def _device_of(like) -> torch.device:
     """Where a restored leaf goes by default: where ``like`` lies (the
     CPU for a meta tensor or a non-tensor)."""
@@ -98,6 +147,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._barrier = False  # a sharded save's commit not yet awaited
         #: the last save's bytes, device->host snapshot and disk write (s)
         self.last_save = {"bytes": 0, "snapshot_s": 0.0, "write_s": 0.0}
 
@@ -107,10 +157,19 @@ class CheckpointManager:
              blocking: bool = False) -> None:
         self.wait()  # one in-flight write at a time; surfaces prior errors
         t0 = time.perf_counter()
-        # synchronous, consistent device->host snapshot
+        leaves = list(_flatten(tree))
+        self._barrier = any(isinstance(x, DTensor) for _, x in leaves)
+        # of a sharded tree, rank 0 writes the one checkpoint; every rank
+        # meets the others at its next wait()
+        writes = not self._barrier or dist.get_rank() == 0
+
+        def snapshot(x):
+            x = _whole(x)  # a collective: every rank gathers
+            return _to_bytes(x) if writes else None
+        # synchronous, consistent device->host snapshot, where it is written
         host = [("/".join(p), str(x.dtype).removeprefix("torch."),
-                 list(x.shape), _to_bytes(x)) for p, x in _flatten(tree)]
-        stats = {"bytes": sum(a.nbytes for *_, a in host),
+                 list(x.shape), snapshot(x)) for p, x in leaves]
+        stats = {"bytes": sum(a.nbytes for *_, a in host if a is not None),
                  "snapshot_s": time.perf_counter() - t0, "write_s": 0.0}
         self.last_save = stats
         meta = {
@@ -144,9 +203,10 @@ class CheckpointManager:
                 self._error = e
 
         if blocking:
-            write()
+            if writes:
+                write()
             self.wait()
-        else:
+        elif writes:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
@@ -154,6 +214,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:  # every rank sees rank 0's commit
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             e, self._error = self._error, None
             raise e
@@ -179,10 +242,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: int | None = None, *,
-                device=None) -> tuple:
+                device=None, shardings=None) -> tuple:
         """Restore into the structure of ``tree_like`` (its leaves give the
         expected shapes).  Each leaf goes to ``device``, or where
-        ``tree_like``'s leaf lies.  Returns (tree, step, extra)."""
+        ``tree_like``'s leaf lies; with ``shardings`` (a tree like
+        ``tree_like``'s of ``rules.Placed``, a module's a dict by parameter
+        name) it becomes a DTensor with those placements.  Returns (tree,
+        step, extra)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -201,6 +267,11 @@ class CheckpointManager:
             exp = tuple(like.shape)
             if tuple(arr.shape) != exp:
                 raise ValueError(f"{k}: shape {tuple(arr.shape)} != expected {exp}")
-            leaves[path] = arr.to(device if device is not None
-                                  else _device_of(like))
+            if shardings is not None:
+                placed = _placed_for(shardings, path)
+                leaves[path] = rules.place(arr, placed.mesh,
+                                           placed.placements)
+            else:
+                leaves[path] = arr.to(device if device is not None
+                                      else _device_of(like))
         return _rebuild(tree_like, leaves), step, meta["extra"]

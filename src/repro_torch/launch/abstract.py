@@ -9,19 +9,30 @@ accepts.  Tensors of one mode meet only tensors of the same mode: make a
 cell's parameters, batch and cache under one (:func:`fake_mode`) and run
 its step under it too.  The dry run (``launch/dryrun.py``), the roofline
 (``launch/roofline.py``) and the sharding tests read these.
+
+:func:`fake_world` is the counterpart of the reference's 512 forced host
+devices: a process group of the production mesh's size in which this
+process is rank 0 and every collective returns at once, so a sharded step
+(``launch/steps.py::sharded``) runs one rank's share on fake tensors and
+issues its collectives, which ``launch/op_analysis.py`` counts.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.models import build_model
 
 
-def fake_mode() -> FakeTensorMode:
-    """A new mode; what is made under it stays out of memory."""
-    return FakeTensorMode()
+def fake_mode(allow_non_fake_inputs: bool = False) -> FakeTensorMode:
+    """A new mode; what is made under it stays out of memory.  A sharded
+    step needs ``allow_non_fake_inputs``: DTensor reads its mesh's real
+    table of ranks under the mode."""
+    return FakeTensorMode(allow_non_fake_inputs=allow_non_fake_inputs)
 
 
 def abstract_params(cfg, mode: FakeTensorMode, dtype=torch.bfloat16):
@@ -46,3 +57,56 @@ def abstract_opt_state(params, mode: FakeTensorMode) -> dict:
 
     with mode:
         return adamw_init(params)
+
+
+@contextlib.contextmanager
+def _index_math_on_real_tensors():
+    """DTensor computes where a strided shard (two sharded dims flattened
+    into one, as ``x @ w`` does to a [B, S, d] residual sharded on B and S)
+    starts with ``torch.arange(...).tolist()``; under ``FakeTensorMode``
+    that tensor is fake and has no values.  For the block, that one method
+    runs with the mode unset, and uncounted.  The class and the method are
+    DTensor's own, private: a PyTorch without them raises."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import placement_types
+
+    from repro_torch.launch.op_analysis import muted
+
+    cls = getattr(placement_types, "_StridedShard", None)
+    fn = None if cls is None else cls.__dict__.get(
+        "local_shard_size_and_offset")
+    if not callable(fn):
+        raise RuntimeError(
+            f"fake_world: PyTorch {torch.__version__} has no "
+            f"_StridedShard.local_shard_size_and_offset to run on real "
+            f"tensors")
+
+    def real(self, *args, **kwargs):
+        with unset_fake_temporarily(), muted():
+            return fn(self, *args, **kwargs)
+
+    cls.local_shard_size_and_offset = real
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = fn
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """The default process group, for the block, as ``world_size`` ranks of
+    the ``"fake"`` backend, this process rank 0.  The backend's store lives
+    in ``torch.testing._internal`` (PyTorch's own distributed tests): its
+    only public home, imported here and nowhere else."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialized in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        with _index_math_on_real_tensors():
+            yield
+    finally:
+        dist.destroy_process_group()

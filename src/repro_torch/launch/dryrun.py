@@ -14,16 +14,20 @@ the reference's record with these numbers:
   under ``sharding/rules.py``; ``output_bytes``, ``temp_bytes``,
   ``alias_bytes`` and ``peak_bytes_est`` are ``None``: no compiler
   assigns buffers;
-- ``hlo``: ``launch/op_analysis.py``'s count of the port's own step
-  (``launch/steps.py``) run once on fake tensors at the cell's GLOBAL
-  shapes, divided by the mesh's device count (``split: "ideal"``: what
-  each device would do if the work split evenly), beside the whole step's
-  count; ``collective_bytes_total`` is ``None``: the port has no sharded
-  step yet, so no collective is counted.
+- ``hlo``: ``launch/op_analysis.py``'s count of one device's share of
+  the port's sharded step (``launch/steps.py::sharded`` with
+  ``step_specs``, the specs ``lower_cell`` passes) run once on fake
+  tensors (``split: "sharded"``): its dot FLOPs and bytes, and the
+  collectives it issues — ``collective_bytes`` by kind, their total and
+  their counts (a reduce-scatter's bytes times the mesh's 'model' size, as
+  the reference passes ``n_shards_hint``).
 
-``launch/roofline.py`` reads these records.  Nothing here touches a
-device: the production mesh is an abstract ``{axis: size}``
-(``launch/mesh.py``).  ``--save-hlo`` has no counterpart (there is no
+The mesh is a ``DeviceMesh`` of the production shape over a fake process
+group of its size (``launch/abstract.py::fake_world``; this process is
+rank 0): nothing touches a device.  The collectives are DTensor's: on a
+CPU mesh DTensor gathers where a CUDA mesh would exchange all-to-all, so
+such a move counts as an all-gather of the whole.  ``launch/roofline.py``
+reads these records.  ``--save-hlo`` has no counterpart (there is no
 HLO).
 
 Usage:
@@ -44,11 +48,13 @@ import torch
 from repro_torch.configs import (ARCH_IDS, SHAPES, cell_supported,
                                  decode_cache_size, get_config, input_specs)
 from repro_torch.launch.abstract import (abstract_cache, abstract_opt_state,
-                                         abstract_params, fake_mode)
-from repro_torch.launch.mesh import make_production_mesh
+                                         abstract_params, fake_mode,
+                                         fake_world)
+from repro_torch.launch.mesh import make_device_mesh, make_production_mesh
 from repro_torch.launch.op_analysis import analyze
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
-                                      make_train_step)
+                                      make_train_step, place_tree, sharded,
+                                      step_specs)
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.sharding import rules
@@ -119,22 +125,40 @@ def _moments_tree(params, moments: dict):
     return walk(params.tree(), "")
 
 
-def step_cost(cfg, shape, inputs, mode, grad_compression="none") -> dict:
-    """``op_analysis.analyze`` of the cell's step, once, on ``inputs`` (one
-    device's view of the whole global step)."""
+def step_cost(cfg, shape, inputs, mode, mesh,
+              grad_compression="none") -> dict:
+    """``op_analysis.analyze`` of the cell's step, once, on ``inputs``:
+    one device's share of the step sharded over ``mesh`` (a
+    ``DeviceMesh``)."""
     model = build_model(cfg)
     params, opt, batch, cache = inputs
+    kind = shape.kind
+    if kind == "train":
+        step = make_train_step(model, AdamWConfig(),
+                               grad_compression=grad_compression)
+        args = (params, opt, batch)
+    elif kind == "prefill":
+        step, args = make_prefill_step(model, shape.seq_len), (params, batch)
+    else:
+        step, args = make_decode_step(model), (params, cache, batch)
     with mode:
-        if shape.kind == "train":
-            params.requires_grad_(True)
-            step = make_train_step(model, AdamWConfig(),
-                                   grad_compression=grad_compression)
-            return analyze(step, params, opt, batch)
-        with torch.no_grad():
-            if shape.kind == "prefill":
-                return analyze(make_prefill_step(model, shape.seq_len),
-                               params, batch)
-            return analyze(make_decode_step(model), params, cache, batch)
+        params.requires_grad_(kind == "train")
+        ins, outs = step_specs(
+            cfg, kind, mesh, params, batch,
+            None if kind == "train" else
+            shape.seq_len if kind == "prefill" else cache_size_of(cache))
+        args = tuple(place_tree(a, s, mesh) for a, s in zip(args, ins))
+        with torch.set_grad_enabled(kind == "train"):
+            return analyze(sharded(step, mesh, ins, outs), *args,
+                           n_shards_hint=mesh.size(
+                               mesh.mesh_dim_names.index("model")))
+
+
+def cache_size_of(cache) -> int:
+    """The slot count of a decode cache (its K/V's third axis; 0 for a
+    state-only cache)."""
+    k = cache.get("k")
+    return 0 if k is None else k.shape[2]
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
@@ -152,23 +176,26 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
         t0 = time.time()
-        mode = fake_mode()
+        mode = fake_mode(allow_non_fake_inputs=True)
         inputs = cell_inputs(cfg, shape, mode)
         args = argument_bytes(cfg, shape, mesh, inputs)
-        cost = step_cost(cfg, shape, inputs, mode, grad_compression)
-        n = mesh.size
+        with fake_world(mesh.size):
+            dmesh = make_device_mesh(tuple(mesh.shape.values()),
+                                     mesh.axis_names, device_type="cpu")
+            cost = step_cost(cfg, shape, inputs, mode, dmesh,
+                             grad_compression)
         rec.update(
             status="ok",
             count_seconds=round(time.time() - t0, 2),
             memory=dict(argument_bytes=args["total"], arguments=args,
                         output_bytes=None, temp_bytes=None, alias_bytes=None,
                         peak_bytes_est=None),
-            hlo=dict(dot_flops=cost["dot_flops"] / n,
-                     hbm_bytes=cost["hbm_bytes"] / n,
-                     collective_bytes=None, collective_bytes_total=None,
-                     collective_counts=None, split="ideal", devices=n,
-                     step_dot_flops=cost["dot_flops"],
-                     step_hbm_bytes=cost["hbm_bytes"],
+            hlo=dict(dot_flops=cost["dot_flops"],
+                     hbm_bytes=cost["hbm_bytes"],
+                     collective_bytes=cost["collective_bytes"],
+                     collective_bytes_total=cost["collective_bytes_total"],
+                     collective_counts=cost["collective_counts"],
+                     split="sharded", devices=mesh.size,
                      n_ops=cost["n_ops"]),
         )
     except Exception as e:  # a failure here is a bug in the system
@@ -213,7 +240,9 @@ def main(argv=None):
                 extra = (f"count={rec['count_seconds']}s "
                          f"args={rec['memory']['argument_bytes'] / 2**30:.2f}"
                          f"GiB/dev "
-                         f"dotTFLOP={rec['hlo']['dot_flops'] / 1e12:.3f}/dev")
+                         f"dotTFLOP={rec['hlo']['dot_flops'] / 1e12:.3f}/dev "
+                         f"coll={rec['hlo']['collective_bytes_total'] / 2**30:.3f}"
+                         f"GiB/dev")
             elif status == "error":
                 extra = rec["error"][:200]
             else:

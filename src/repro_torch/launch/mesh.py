@@ -1,13 +1,24 @@
-"""Meshes of the port: the abstract production meshes of the dry run and the
-tensor-parallel serving mesh.
+"""Meshes of the port: the abstract production meshes of the dry run, the
+device meshes of the sharded step, and the tensor-parallel serving mesh.
 
 The port of ``repro.launch.mesh``.  :func:`make_production_mesh` and
 :func:`make_smoke_mesh` give an :class:`AbstractMesh`: axis names and
-sizes, no devices — what the sharding rules (``sharding/rules.py``) and
-the dry run (``launch/dryrun.py``) read, as they read a jax ``Mesh``'s
-``.shape``; the dry run touches no device, so the reference's 512 forced
-host devices have no counterpart.  ``_make_mesh`` and ``mesh_context``
-(jax-version shims) have none either.
+sizes, no devices — what the sharding rules (``sharding/rules.py``) read,
+as they read a jax ``Mesh``'s ``.shape``.
+
+:func:`make_device_mesh` is the port of the device-backed meshes: a
+``torch.distributed`` ``DeviceMesh`` over the default process group, one
+rank per device, with the reference's axis names (``("data", "model")``
+or ``("pod", "data", "model")``).  The process group comes first
+(:func:`init_distributed`: NCCL on the card, gloo on the CPU, given its
+address, rank and world size; nothing on a machine announces a cluster).
+:func:`mesh_context` is the port of ``jax.set_mesh``: the annotations of
+``sharding/rules.py`` read the mesh it sets (:func:`current_mesh`), and
+inside it a plain tensor that meets a DTensor counts as replicated (every
+rank makes the same ``arange`` and masks; DTensor's
+``implicit_replication``).  The reference's ``_make_mesh`` shim has no
+counterpart.  The dry run's mesh of 256 or 512 ranks is a fake process
+group (``launch/abstract.py::fake_world``).
 
 :func:`make_serving_mesh` is the port of ``make_serving_mesh``.  A JAX
 serving mesh is
@@ -26,10 +37,12 @@ the reference's forced host devices.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class AbstractMesh(NamedTuple):
@@ -59,6 +72,72 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 def make_smoke_mesh(shape=(2, 2), axes=("data", "model")) -> AbstractMesh:
     """A small mesh of the same axes, for tests."""
     return AbstractMesh(dict(zip(axes, shape)))
+
+
+def init_distributed(*, rank: int, world_size: int, device_type: str = "cuda",
+                     address: str = "localhost", port: int = 29500) -> None:
+    """Join the default process group: NCCL for ``"cuda"`` (rank r on
+    ``cuda:r``), gloo for ``"cpu"``, at ``tcp://address:port``."""
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed(device_type='cuda'): no CUDA "
+                               "device is available")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        backend = "nccl"
+    elif device_type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', not "
+                         f"{device_type!r}")
+    dist.init_process_group(backend, init_method=f"tcp://{address}:{port}",
+                            rank=rank, world_size=world_size)
+
+
+def make_device_mesh(shape, axes=("data", "model"), *,
+                     device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` over the default process group, its
+    dims named ``axes``.  Raises ``RuntimeError`` when the world size is
+    not ``prod(shape)``, and when ``"cuda"`` is asked for and no card is
+    present (never a fall back to the CPU)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_device_mesh(device_type='cuda'): no CUDA "
+                           "device is available")
+    if not dist.is_initialized():
+        raise RuntimeError("make_device_mesh: no process group; call "
+                           "init_distributed first")
+    if dist.get_world_size() != math.prod(shape):
+        raise RuntimeError(
+            f"mesh {shape} needs {math.prod(shape)} ranks; the process group "
+            f"has {dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+_MESHES: list = []
+
+
+def current_mesh():
+    """The mesh :func:`mesh_context` set, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Make ``mesh`` the ambient mesh (the port of ``jax.set_mesh``): the
+    sharding annotations act on DTensors under it; plain tensors meeting a
+    DTensor count as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESHES.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESHES.pop()
 
 
 class ServingMesh(NamedTuple):

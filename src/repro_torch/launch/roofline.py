@@ -1,11 +1,12 @@
 """Roofline over dry-run records: the port of ``repro.launch.roofline``.
 
 Three terms per (arch x shape) cell, all PER DEVICE per step, from the op
-count of the dry run (``launch/dryrun.py``, ``launch/op_analysis.py``):
+count of the dry run's sharded step (``launch/dryrun.py``,
+``launch/op_analysis.py``):
 
     compute    = dot_flops / PEAK_FLOPS
     memory     = hbm_bytes / HBM_BW
-    collective = collective_bytes / LINK_BW   (None: not yet counted)
+    collective = collective_bytes / LINK_BW
 
 plus MODEL_FLOPS (the 6·N·D / 2·N·D analytic "useful" flops), the
 useful-compute ratio MODEL_FLOPS / counted FLOPs (catches remat, padding
@@ -17,10 +18,10 @@ datasheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, NVLink 900 GB/s
 bidirectional (450 GB/s each way).  The reference's table is for its TPU
 (``CHIPS = 256`` stays: the production mesh's device count).
 
-The dry run's counts are an ideal split (the whole step's count over the
-mesh's devices) and its memory the exact argument bytes; it has no
-compiler's temporaries and no collective term yet, so the peak and the
-collective columns read "—" until a sharded step exists.
+The dry run's counts are one device's share of the sharded step and the
+collectives it issues, and its memory the exact argument bytes; it has no
+compiler's temporaries, so the peak column reads "—".  The dominant term
+is the largest of the three.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.roofline --dir artifacts/dryrun_torch

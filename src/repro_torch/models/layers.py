@@ -19,6 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules
+
 # ---------------------------------------------------------------------------
 # Norms
 
@@ -49,14 +51,18 @@ def nonparam_layernorm(x, eps=1e-5):
 
 
 def apply_norm(cfg, x, norm_params):
-    """The config's norm over the last axis."""
+    """The config's norm over the last axis; under a mesh the output's
+    sequence is gathered (``rules.gather_seq``) for the products that
+    read it."""
     if cfg.norm_type == "rmsnorm":
-        return rmsnorm(x, norm_params["scale"])
-    if cfg.norm_type == "layernorm":
-        return layernorm(x, norm_params["scale"], norm_params["bias"])
-    if cfg.norm_type == "nonparam_ln":
-        return nonparam_layernorm(x)
-    raise ValueError(cfg.norm_type)
+        y = rmsnorm(x, norm_params["scale"])
+    elif cfg.norm_type == "layernorm":
+        y = layernorm(x, norm_params["scale"], norm_params["bias"])
+    elif cfg.norm_type == "nonparam_ln":
+        y = nonparam_layernorm(x)
+    else:
+        raise ValueError(cfg.norm_type)
+    return rules.gather_seq(y)
 
 
 def init_norm(cfg, d, dtype=torch.bfloat16, device=None):
@@ -174,9 +180,9 @@ def attention_qkv(cfg, x, p, positions):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, Hq, Dh)
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    q = rules.split_heads(q, Hq).reshape(B, S, Hq, Dh)
+    k = rules.split_heads(k, Hkv).reshape(B, S, Hkv, Dh)
+    v = rules.split_heads(v, Hkv).reshape(B, S, Hkv, Dh)
     if cfg.use_rope:
         sin, cos = rope_angles(positions, Dh, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
@@ -318,6 +324,10 @@ def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
     (VLM image prefix); ``q_offset``: global position of q[0].  A query
     whose every key is masked gets 0.  Returns [B, Sq, Hq, D] in q.dtype.
     """
+    kw = dict(causal=causal, chunk=chunk, window=window, q_offset=q_offset,
+              prefix_len=prefix_len)
+    if rules.sharded_on_mesh(q):
+        return _flash_sharded(q, k, v, kw)
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
@@ -326,23 +336,78 @@ def flash_attention(q, k, v, *, causal=True, chunk=512, window=None,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def _flash_sharded(q, k, v, kw):
+    """:func:`flash_attention` on DTensors: each rank attends over its batch
+    rows and, over 'model', its query heads with their KV heads
+    (``rules.head_slab``): its own KV heads where 'model' divides them,
+    else the KV heads its query slab reads, cut from whole K/V; where the
+    query heads do not divide either, every rank attends over all heads."""
+    how, kv = rules.head_slab(q.shape[2], k.shape[2])
+    qs = rules.batch_spec(q, 0, 2, how != "whole")
+    ks = rules.batch_spec(k, 0, 2, how == "heads")
+
+    def attend(q, k, v):
+        if kv is not None:
+            k, v = (t.narrow(2, kv[0], kv[1]) for t in (k, v))
+        return flash_attention(q, k, v, **kw)
+
+    return rules.local(attend, (q, k, v), (qs, ks, ks), qs)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     """Single-token attention over a (possibly longer-than-valid) cache.
 
     q: [B, 1, Hq, D]; caches: [B, S, Hkv, D]; cache_len: [] or [B] valid
     length (slots ``< cache_len`` are read; with ``window``, also only
     slots ``>= cache_len - window``).  Returns [B, 1, Hq, D] in q.dtype.
-    """
+    Under a mesh: :func:`_decode_attention_sharded`."""
+    if rules.sharded_on_mesh(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, cache_len,
+                                         window)
+    s = _decode_scores(q, k_cache, cache_len, window)
+    p = torch.softmax(s, dim=-1)
+    o = _decode_mix(p, v_cache)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def _decode_scores(q, k_cache, cache_len, window, first=0):
+    """Masked float32 scores [B, Hkv, G, S] of q against the cache's slots
+    (``first``: the global index of its slot 0)."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, D)
     s = _f32_einsum("bhgd,bkhd->bhgk", qg, k_cache) / math.sqrt(D)
-    k_pos = torch.arange(S, device=q.device)
+    k_pos = torch.arange(first, first + S, device=q.device)
     n = cache_len.reshape(-1, 1)
     valid = k_pos[None, :] < n  # [B or 1, S]
     if window is not None:
         valid = valid & (k_pos[None, :] >= n - window)
-    s = torch.where(valid[:, None, None, :], s, -math.inf)
+    return torch.where(valid[:, None, None, :], s, -math.inf)
+
+
+def _decode_mix(p, v_cache):
+    """The probabilities [B, Hkv, G, S], rounded to V's dtype as the
+    reference rounds them, times V -> float32 [B, Hkv, G, D]."""
+    return _f32_einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, cache_len, window):
+    """:func:`decode_attention` over a DTensor cache whose slots
+    ``cache_specs`` put over 'model': each rank scores its slots against
+    every head (q whole), the softmax runs over all slots (DTensor gathers
+    the scores, B·Hq·S floats, not the cache), and each rank mixes its
+    slots' values, a partial sum over 'model'."""
+    split = rules.model_sharded(k_cache, 1)
+    first = rules.shard_offset(k_cache, 1)
+    cs = rules.batch_spec(k_cache, 0, 1, split)
+    dp = cs[0]
+    ss = (dp, None, None, "model" if split else None)
+    s = rules.local(
+        lambda q, k, n: _decode_scores(q, k, n, window, first),
+        (q, k_cache, cache_len),
+        ((dp, None, None, None), cs, (dp,) if cache_len.ndim else ()), ss)
     p = torch.softmax(s, dim=-1)
-    o = _f32_einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(B, 1, Hq, D).to(q.dtype)
+    o = rules.local(_decode_mix, (p, v_cache), (ss, cs), rules.placements(
+        (dp, None, None, None), rules.current_mesh(),
+        partial=("model",) if split else ()))
+    return rules.settle(o).reshape(q.shape).to(q.dtype)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import rules
 from . import transformer as T
 
 
@@ -46,13 +47,49 @@ class Model:
     init_cache: Callable  # (batch_size, cache_size, device=None) -> cache
 
 
+def _gold(logits, lbl):
+    """logits [B, c, V] at the labels [B, c]."""
+    return torch.gather(logits, -1, lbl[..., None])[..., 0]
+
+
+def _gold_local(logits, lbl):
+    """:func:`_gold` of one rank's vocab slice: the labels it holds, 0 for
+    the others (the slices' picks sum to the whole pick)."""
+    V = logits.shape[-1]
+    idx = lbl.long() - rules.model_rank() * V
+    own = (idx >= 0) & (idx < V)
+    return _gold(logits, torch.clamp(idx, 0, V - 1)) * own
+
+
 def _ce_chunk(h, w, lbl, msk):
     """Summed masked NLL of one chunk: h [B, c, d] @ w in the model's
     dtype, then float32 over the (padded) vocabulary."""
-    logits = (h @ w).float()
+    logits = rules.shard_logits(h @ w).float()
+    if rules.sharded_on_mesh(logits):
+        return _ce_chunk_sharded(logits, lbl, msk)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
-    return torch.sum((lse - gold) * msk)
+    return torch.sum((lse - _gold(logits, lbl)) * msk)
+
+
+def _ce_chunk_sharded(logits, lbl, msk):
+    """:func:`_ce_chunk` over vocab-sharded logits (``shard_logits``): each
+    rank's slice gives its max, its sum of exponentials and its labels'
+    logits, each reduced over 'model' explicitly (a partial max, then two
+    partial sums), so every step of the log-sum-exp has one layout."""
+    split = rules.model_sharded(logits, -1)
+    ls, rs = rules.batch_spec(logits, 0, 2, split), rules.batch_spec(lbl)
+    mesh = rules.current_mesh()
+    red = ("model",) if split else ()
+    m = rules.settle(rules.local(
+        lambda t: t.detach().amax(dim=-1), (logits,), (ls,),
+        rules.placements(rs, mesh, partial=red, reduce_op="max")))
+    sums = rules.settle(rules.local(
+        lambda t, m: torch.sum(torch.exp(t - m[..., None]), dim=-1),
+        (logits, m), (ls, rs), rules.placements(rs, mesh, partial=red)))
+    gold = rules.settle(rules.local(
+        _gold_local if split else _gold, (logits, lbl), (ls, rs),
+        rules.placements(rs, mesh, partial=red)))
+    return torch.sum((m + torch.log(sums) - gold) * msk)
 
 
 def _chunked_ce(cfg, params, hidden, labels, mask):
@@ -65,7 +102,8 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     w = params.embed["tok"].T if cfg.tie_embeddings else params.lm_head
-    tot = cnt = torch.zeros((), device=hidden.device)
+    w = rules.shard_vocab(rules.gather_data(w))
+    tot, cnt = None, torch.zeros((), device=hidden.device)
     for i in range(0, hidden.shape[1], chunk):
         args = (hidden[:, i:i + chunk], w, labels[:, i:i + chunk],
                 mask[:, i:i + chunk])
@@ -74,9 +112,20 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
                              preserve_rng_state=False)
         else:
             nll = _ce_chunk(*args)
-        tot = tot + nll
+        tot = nll if tot is None else tot + nll
         cnt = cnt + torch.sum(args[3])
-    return tot / torch.clamp(cnt, min=1.0)
+    return rules.settle(tot / torch.clamp(cnt, min=1.0))
+
+
+def _next_tokens(tokens):
+    """Each position's next token [B, S] (0 after the last); under a mesh
+    on each rank's rows (DTensor's padding rule is not one every PyTorch
+    has right)."""
+    shift = lambda t: F.pad(t[:, 1:].long(), (0, 1))
+    if not rules.sharded_on_mesh(tokens):
+        return shift(tokens)
+    spec = rules.batch_spec(tokens)
+    return rules.local(shift, (tokens,), (spec,), spec)
 
 
 def _loss(cfg, fwd, params, batch):
@@ -87,7 +136,7 @@ def _loss(cfg, fwd, params, batch):
     tokens = batch["tokens"]
     if cfg.prefix_tokens:  # VLM: loss only on the text suffix
         hidden = hidden[:, batch["patches"].shape[1]:, :]
-    labels = F.pad(tokens[:, 1:].long(), (0, 1))
+    labels = _next_tokens(tokens)
     mask = F.pad(torch.ones(tokens[:, 1:].shape, device=tokens.device),
                  (0, 1))
     ce = _chunked_ce(cfg, params, hidden, labels, mask)

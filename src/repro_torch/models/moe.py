@@ -57,7 +57,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 
+from repro_torch.sharding import rules
 from .layers import _normal
 
 MOE_SEQ_CHUNK = 512
@@ -94,56 +96,141 @@ def _route(cfg, x, w_router):
     return probs, gate / gate.sum(-1, keepdim=True), expert
 
 
-def _moe_group(cfg, x, p, dropless: bool = False, expert0: int = 0):
-    """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 []); the
-    products of experts ``[expert0, expert0 + p["w_gate"].shape[0])``."""
-    B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    El = p["w_gate"].shape[0]
-    C = moe_capacity(cfg, S, dropless=dropless)
-    probs, gate, expert = _route(cfg, x, p["w_router"])
-
-    # load-balancing aux loss (Switch/Mixtral style)
-    experts = torch.arange(E, device=x.device)
+def _slots(cfg, expert, C: int, El: int, expert0: int):
+    """Each assignment's slot within its expert, per batch row, in (token,
+    choice) order -> (flat expert ids [B, S*k], one-hot [B, S*k, E] int32,
+    slot [B, S*k], this call's expert index, kept mask): slots past the
+    capacity ``C`` are dropped, and so (to this call) are assignments to
+    experts outside ``[expert0, expert0 + El)``."""
+    B, S, k = expert.shape
+    E = cfg.n_experts
+    experts = torch.arange(E, device=expert.device)
     onehot = (expert.reshape(B, S * k)[..., None] == experts).to(torch.int32)
-    ce = onehot.float().sum(dim=1).mean(dim=0) / (S * k)
-    aux = E * torch.sum(probs.mean(dim=(0, 1)) * ce)
-
-    # each assignment's slot within its expert, per batch row, in
-    # (token, choice) order; slots past the capacity are dropped, and so
-    # (to this call) are assignments to experts it does not hold
     flat_e = expert.reshape(B, S * k)
     pos_in_e = torch.gather(torch.cumsum(onehot, dim=1), 2,
                             flat_e[..., None])[..., 0] - 1  # [B, S*k]
+    local_e, keep = _kept(flat_e, pos_in_e, C, El, E, expert0)
+    return flat_e, onehot, pos_in_e, local_e, keep
+
+
+def _kept(flat_e, pos_in_e, C, El, E, expert0):
+    """(this call's expert index, kept mask) of each assignment."""
     keep = pos_in_e < C
     local_e = flat_e
     if El != E:  # expert parallelism: this call's experts only
         local_e = flat_e - expert0
         keep = keep & (local_e >= 0) & (local_e < El)
+    return local_e, keep
+
+
+def _aux(cfg, probs, counts, S: int):
+    """Load-balancing aux loss (Switch/Mixtral style) from the router
+    probabilities [B, S, E] and each row's assignment counts [B, E]."""
+    ce = counts.mean(dim=0) / (S * cfg.top_k)
+    return cfg.n_experts * torch.sum(probs.mean(dim=(0, 1)) * ce)
+
+
+def _dispatch(x, local_e, pos_in_e, keep, El: int, C: int, k: int):
+    """Every kept assignment's token to its own row of [El, B*C, d] (rows
+    no assignment takes stay 0); dropped ones to a trash row past it."""
+    B, S, d = x.shape
     rows = torch.arange(B, device=x.device)[:, None]
     trash = El * B * C
     dest = torch.where(keep, (local_e * B + rows) * C + pos_in_e, trash)
-
-    # dispatch: every kept assignment to its own row of [El, B*C, d] (rows
-    # no assignment takes stay 0); dropped ones to the trash row
     src = x[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
     buf = x.new_zeros((trash + 1, d))
     buf.index_copy_(0, dest.reshape(-1), src)
-    eb = buf[:trash].view(El, B * C, d)
+    return buf[:trash].view(El, B * C, d)
 
-    # expert FFN (swiglu), one batched product per weight
+
+def _experts(eb, p):
+    """The expert FFN (swiglu) over [El, B*C, d], one batched product per
+    weight."""
     h = F.silu(torch.bmm(eb, p["w_gate"])) * torch.bmm(eb, p["w_up"])
-    out = torch.bmm(h, p["w_down"]).reshape(El * B * C, d)
+    return torch.bmm(h, p["w_down"])
 
-    # gather back (the dropped slot clamped into the buffer, then zeroed)
-    # and combine under the gates
-    if El != E:
-        local_e = torch.clamp(local_e, 0, El - 1)
+
+def _combine(out, local_e, pos_in_e, keep, gate, C: int):
+    """Gather each assignment's row of ``out`` [El, B*C, d] back (the
+    dropped slot clamped into the buffer, then zeroed) and sum under the
+    gates [B, S, k] -> [B, S, d]."""
+    El, _, d = out.shape
+    B, S, k = gate.shape
+    out = out.reshape(-1, d)
+    local_e = torch.clamp(local_e, 0, El - 1)
+    rows = torch.arange(B, device=out.device)[:, None]
     src_row = (local_e * B + rows) * C + torch.clamp(pos_in_e, max=C - 1)
     gath = out[src_row.reshape(-1)].reshape(B, S * k, d)
     gath = gath * keep[..., None].to(gath.dtype)
     gath = gath * gate.reshape(B, S * k, 1).to(gath.dtype)
-    return gath.reshape(B, S, k, d).sum(dim=2), aux
+    return gath.reshape(B, S, k, d).sum(dim=2)
+
+
+def _moe_group(cfg, x, p, dropless: bool = False, expert0: int = 0):
+    """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 []); the
+    products of experts ``[expert0, expert0 + p["w_gate"].shape[0])``.
+    Under a mesh: :func:`_moe_group_sharded`."""
+    if rules.sharded_on_mesh(x):
+        return _moe_group_sharded(cfg, x, p, dropless)
+    B, S, d = x.shape
+    k = cfg.top_k
+    El = p["w_gate"].shape[0]
+    C = moe_capacity(cfg, S, dropless=dropless)
+    probs, gate, expert = _route(cfg, x, p["w_router"])
+    flat_e, onehot, pos_in_e, local_e, keep = _slots(cfg, expert, C, El,
+                                                     expert0)
+    aux = _aux(cfg, probs, onehot.float().sum(dim=1), S)
+    eb = _dispatch(x, local_e, pos_in_e, keep, El, C, k)
+    out = _experts(eb, p)
+    return _combine(out, local_e, pos_in_e, keep, gate, C), aux
+
+
+def _moe_group_sharded(cfg, x, p, dropless: bool):
+    """:func:`_moe_group` on DTensors, the reference's layout: the group's
+    input sequence-parallel (``shard_seq``); routing, slots and the
+    dispatch on each rank's batch rows (the slots count over whole rows);
+    the buffer [E, B*C, d] batch over the data axes and experts replicated
+    (``shard_experts``); the expert products as DTensor batched products
+    over the weights' own placements (each expert's hidden slice: partial
+    sums over 'model'; whole experts with ``ep``); the combine on each
+    rank's rows and experts, partial where the products were."""
+    x = rules.shard_seq(x)
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, S, dropless=dropless)
+
+    def dispatch(x, w_router):
+        probs, gate, expert = _route(cfg, x, w_router)
+        flat_e, onehot, pos_in_e, local_e, keep = _slots(cfg, expert, C, E, 0)
+        eb = _dispatch(x, local_e, pos_in_e, keep, E, C, k)
+        return probs, gate, flat_e, pos_in_e, onehot.float().sum(dim=1), eb
+
+    bs = rules.batch_spec(x)
+    dp = bs[0]
+    probs, gate, flat_e, pos_in_e, counts, eb = rules.local(
+        dispatch, (x, p["w_router"]), (bs, (None, None)),
+        [bs, bs, (dp, None), (dp, None), (dp, None), (None, dp, None)])
+    aux = _aux(cfg, probs, counts, S)
+    out = _experts(rules.shard_experts(eb, expert_axis=0, batch_axis=1), p)
+
+    mesh = rules.current_mesh()
+    at = out.placements[mesh.mesh_dim_names.index("model")]
+    partial = isinstance(at, Partial)
+    ep = isinstance(at, Shard) and at.dim == 0
+    out_pl = rules.placements(("model" if ep else None, dp, None), mesh,
+                              partial=("model",) if partial else ())
+
+    def combine(out, flat_e, pos_in_e, gate):
+        El = out.shape[0]
+        expert0 = rules.model_rank() * El if ep else 0
+        local_e, keep = _kept(flat_e, pos_in_e, C, El, E, expert0)
+        return _combine(out, local_e, pos_in_e, keep, gate, C)
+
+    y = rules.local(combine, (out, flat_e, pos_in_e, gate),
+                    (out_pl, (dp, None), (dp, None), bs),
+                    rules.placements(bs, mesh, partial=(
+                        ("model",) if partial or ep else ())))
+    return y, aux
 
 
 def moe_apply(cfg, x, p, group: int = MOE_SEQ_CHUNK, dropless: bool = False,

@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules
 from .layers import _normal
 
 _C = 8.0
@@ -63,9 +64,11 @@ def _conv1d(u, w, b, cache=None):
 
 
 def _gates(u, p):
-    """Per-step decay a and input b, float32 [B, S, dr]."""
-    r = torch.sigmoid((u @ p["w_a"]).float())
-    i = torch.sigmoid((u @ p["w_x"]).float())
+    """Per-step decay a and input b, float32 [B, S, dr] (under a mesh the
+    gate products read u whole over 'model', ``rules.gather_model``)."""
+    uw = rules.gather_model(u)
+    r = torch.sigmoid((uw @ p["w_a"]).float())
+    i = torch.sigmoid((uw @ p["w_x"]).float())
     log_a = -_C * F.softplus(p["lam"])[None, None, :] * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())

@@ -21,11 +21,13 @@ state size N, a depthwise conv of width 4 on the (x, B, C) projections.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import rules
 from .layers import _normal
 
 
@@ -92,10 +94,33 @@ def ssd_apply(cfg, x, p, chunk=128, return_state=False):
     A sequence ``chunk`` does not divide is right-padded; padded steps get
     ``dt_raw = -1e9`` (softplus 0) and a zero mask on dt, so they leave the
     state untouched, and the conv cache is taken from the TRUE sequence
-    end."""
-    B, S_true, _ = x.shape
+    end.  Under a mesh the projections are DTensor products and the mixer
+    between them runs on each rank's batch rows, whole over 'model' (its
+    conv and scan cut neither the channels nor the heads evenly)."""
+    S_true = x.shape[1]
+    proj = x @ p["in_proj"]
+    args = (proj, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"])
+    mix = functools.partial(_ssd_mix, cfg, chunk, x.dtype)
+    if rules.sharded_on_mesh(proj):
+        bs = rules.batch_spec(proj)
+        dp = bs[0]
+        y, carry, conv_cache = rules.local(
+            mix, args, (bs, (None, None)) + ((None,),) * 4,
+            [bs, (dp, None, None, None), (dp, None, None)])
+    else:
+        y, carry, conv_cache = mix(*args)
+    out = (y @ p["out_proj"])[:, :S_true]
+    if return_state:
+        return out, {"ssm": carry, "conv": conv_cache}
+    return out
+
+
+def _ssd_mix(cfg, chunk, dtype, proj, conv_w, conv_b, dt_bias, A_log, D):
+    """The mixer between the projections: proj [B, S, proj_out] -> (y [B,
+    S_padded, d_inner] in ``dtype``, the final state, the conv cache)."""
+    B, S_true, _ = proj.shape
     d_inner, P, H, N = ssm_dims(cfg)
-    z, xBC, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xBC, dt_raw = _split_proj(cfg, proj)
     pad = (-S_true) % chunk
     xBC_raw = xBC
     if pad:
@@ -103,16 +128,16 @@ def ssd_apply(cfg, x, p, chunk=128, return_state=False):
         dt_raw = F.pad(dt_raw, (0, 0, 0, pad), value=-1e9)
         z = F.pad(z, (0, 0, 0, pad))
     S = S_true + pad
-    xBC, _ = _conv1d(xBC, p["conv_w"], p["conv_b"])
+    xBC, _ = _conv1d(xBC, conv_w, conv_b)
     left = torch.cat([xBC_raw.new_zeros((B, 3, xBC_raw.shape[-1])), xBC_raw],
                      dim=1)
     conv_cache = left[:, S_true:S_true + 3, :]
     xs, B_, C_ = torch.split(xBC, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B, S, H]
+    dt = F.softplus(dt_raw.float() + dt_bias)  # [B, S, H]
     if pad:
-        live = torch.arange(S, device=x.device) < S_true
+        live = torch.arange(S, device=proj.device) < S_true
         dt = dt * live[None, :, None].to(dt.dtype)
-    A = -torch.exp(p["A_log"])  # [H]
+    A = -torch.exp(A_log)  # [H]
 
     nc = S // chunk
     xc = xs.reshape(B, nc, chunk, H, P).float()
@@ -132,7 +157,7 @@ def ssd_apply(cfg, x, p, chunk=128, return_state=False):
     decay_end = torch.exp(dAcs[:, :, -1:, :] - dAcs)  # [B, nc, Q, H]
     states = torch.einsum("bcsn,bcshp->bchpn", Bc, decay_end[..., None] * xdt)
     chunk_decay = torch.exp(dAcs[:, :, -1, :])  # [B, nc, H]
-    carry = x.new_zeros((B, H, P, N), dtype=torch.float32)
+    carry = proj.new_zeros((B, H, P, N), dtype=torch.float32)
     states_in = []  # each chunk's INCOMING state
     for c in range(nc):
         states_in.append(carry)
@@ -142,12 +167,9 @@ def ssd_apply(cfg, x, p, chunk=128, return_state=False):
         * torch.exp(dAcs)[..., None]
 
     y = (y_diag + y_off).reshape(B, S, H, P)
-    y = y + xs.reshape(B, S, H, P).float() * p["D"][None, None, :, None]
+    y = y + xs.reshape(B, S, H, P).float() * D[None, None, :, None]
     y = y.reshape(B, S, d_inner) * F.silu(z.float())
-    out = (y.to(x.dtype) @ p["out_proj"])[:, :S_true]
-    if return_state:
-        return out, {"ssm": carry, "conv": conv_cache}
-    return out
+    return y.to(dtype), carry, conv_cache
 
 
 def ssd_decode_init(cfg, batch, device=None):

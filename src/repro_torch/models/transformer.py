@@ -34,6 +34,12 @@ states and ``len`` are new tensors.  No step reads the device from the
 host.  The decoder families' paged serving path is
 ``serving/paged_decode.py``; this module's decoder functions are the
 non-paged path (sliding window and VLM image prefix included).
+
+Under a device mesh (``launch/steps.py::sharded``) the same functions run
+on DTensors: ``shard_seq`` sits at the reference's sites, every sublayer
+output joins the residual through :func:`_residual`, and each layer's
+parameters are gathered over the data axes where it runs (FSDP,
+``rules.gather_data``); on plain tensors all of it is the identity.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import rules
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .layers import (_normal, apply_norm, attention_qkv, decode_attention,
@@ -75,18 +82,43 @@ def init_embed(cfg, gen, dtype=torch.bfloat16, device=None):
 def embed_tokens(cfg, p, tokens, positions):
     """tokens [B, S] -> [B, S, d_model] (scaled / plus learned positions as
     the config says)."""
-    x = p["tok"][tokens]
+    x = _lookup(p["tok"], tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if not cfg.use_rope:
-        x = x + p["pos"][positions]
+        x = x + _lookup(p["pos"], positions)
     return x
+
+
+def _lookup(table, idx):
+    """``table[idx]``; under a mesh on each rank's rows of ``idx`` from the
+    whole table (DTensor's rule for the lookup's backward scatter is not
+    one every PyTorch has right).  A table replicated as it is (a tied
+    one, which the unembedding also reads) gets its gradient back in its
+    own layout here, so its two gradients add in one layout."""
+    if not rules.sharded_on_mesh(table):
+        return table[idx]
+    if not any(isinstance(p, rules.Shard) for p in table.placements):
+        table = rules.grad_layout(table)
+    spec = rules.batch_spec(idx)
+    return rules.local(lambda t, i: t[i], (table, idx), ((None, None), spec),
+                       spec + (None,))
 
 
 def unembed(cfg, model, x):
     """Hidden states -> logits through the tied table or ``lm_head``."""
     w = model.embed["tok"].T if cfg.tie_embeddings else model.lm_head
-    return x @ w
+    return x @ rules.gather_data(w)
+
+
+def _residual(x, y):
+    """x plus a sublayer's output y, laid out as the residual stream
+    (``shard_seq``): under a mesh, a row-parallel product's partial sums
+    reduce-scatter into the sequence shards here (Megatron-SP; a one-token
+    step's are summed whole), and the backward then brings y's gradient
+    back with its sequence whole.  Every add sees one layout, so no
+    version of DTensor has a choice to make."""
+    return x + rules.shard_seq(y)
 
 
 def _ffn(cfg, x, blk, norm, dropless=False):
@@ -94,8 +126,9 @@ def _ffn(cfg, x, blk, norm, dropless=False):
     ``dropless``) of ``norm``(x)."""
     h = apply_norm(cfg, x, blk[norm])
     if "moe" in blk:
-        return x + moe_apply(cfg, h, blk["moe"], dropless=dropless)[0]
-    return x + mlp_apply(cfg, h, blk["mlp"])
+        return _residual(x, moe_apply(cfg, h, blk["moe"],
+                                      dropless=dropless)[0])
+    return _residual(x, mlp_apply(cfg, h, blk["mlp"]))
 
 
 #: the matrix products without batch dimensions, whose outputs ``"dots"``
@@ -114,15 +147,21 @@ def _remat(cfg, fn, *args):
     only the layer's inputs and recomputes the rest in the backward,
     ``"dots"`` also keeps the outputs of its matrix products without
     batch dimensions.  With ``"none"``, or where no backward can follow
-    (grad mode off), ``fn`` runs as it is."""
+    (grad mode off), ``fn`` runs as it is.  Under a mesh the layer's
+    parameters are gathered over the data axes inside it
+    (``rules.gather_data``), so a recomputed layer gathers them again, as
+    FSDP does."""
+    def layer(x, blk, *rest):  # a layer's parameters gathered (FSDP)
+        return fn(x, rules.gather_data(blk), *rest)
+
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return fn(*args)
+        return layer(*args)
     # the layers draw no random numbers: no RNG state to stash
     kw = dict(use_reentrant=False, preserve_rng_state=False)
     if cfg.remat == "full":
-        return checkpoint(fn, *args, **kw)
+        return checkpoint(layer, *args, **kw)
     if cfg.remat == "dots":
-        return checkpoint(fn, *args, **kw, context_fn=functools.partial(
+        return checkpoint(layer, *args, **kw, context_fn=functools.partial(
             create_selective_checkpoint_contexts, _save_dots))
     raise ValueError(cfg.remat)
 
@@ -141,9 +180,34 @@ def _ring_step(cache, layer, rows, slot, k, v):
     """Write the new token's K/V [B, 1, Hkv, D] into ring slot ``slot`` of
     layer ``layer``'s cache, in place.  Returns that layer's (k, v)."""
     kc, vc = cache["k"][layer], cache["v"][layer]
+    if rules.sharded_on_mesh(kc):
+        _ring_write_sharded(kc, slot, k[:, 0])
+        _ring_write_sharded(vc, slot, v[:, 0])
+        return kc, vc
     kc[rows, slot] = k[:, 0].to(kc.dtype)
     vc[rows, slot] = v[:, 0].to(vc.dtype)
     return kc, vc
+
+
+def _ring_write_sharded(c, slot, new):
+    """``c[b, slot[b]] = new[b]`` on each rank's shard of the DTensor cache
+    layer c [B, W, Hkv, D] (batch and ring slots as ``cache_specs`` placed
+    them): the rank holding the slot writes it, the others write back what
+    they hold."""
+    off = rules.shard_offset(c, 1)
+    dp = rules.batch_spec(slot)[0]
+
+    def write(c, slot, new):
+        rows = torch.arange(c.shape[0], device=c.device)
+        i = slot.long() - off
+        own = (i >= 0) & (i < c.shape[1])
+        i = torch.clamp(i, 0, c.shape[1] - 1)
+        c[rows, i] = torch.where(own[:, None, None], new.to(c.dtype),
+                                 c[rows, i])
+
+    # the cache keeps its placements: the region writes its own shards
+    rules.local(write, (c, slot, new), (c.placements, (dp,), (dp, None, None)),
+                None)
 
 
 def _decode_setup(cfg, model, batch, W):
@@ -368,19 +432,20 @@ def _decoder_embed(cfg, model, batch):
 def _decoder_block_fwd(cfg, x, blk, positions, prefix_len, dropless=False):
     """One block over the whole sequence -> (x, aux, k, v); MoE blocks
     capacity-bounded unless ``dropless``."""
+    x = rules.shard_seq(x)  # sequence-parallel residual stream (Megatron-SP)
     h = apply_norm(cfg, x, blk["ln1"])
     q, k, v = attention_qkv(cfg, h, blk["attn"], positions)
     # prefix_len > 0: leading (image) tokens attend bidirectionally
     att = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                           window=cfg.sliding_window, prefix_len=prefix_len)
-    x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
+    x = _residual(x, rules.merge_heads(att) @ blk["attn"]["wo"])
     h2 = apply_norm(cfg, x, blk["ln2"])
     if cfg.moe:
         y, aux = moe_apply(cfg, h2, blk["moe"], dropless=dropless)
     else:
         y = mlp_apply(cfg, h2, blk["mlp"])
         aux = torch.zeros((), device=x.device)
-    return x + y, aux, k, v
+    return _residual(x, y), aux, k, v
 
 
 def decoder_forward(cfg, model, batch, dropless=False):
@@ -413,8 +478,8 @@ def decoder_prefill(cfg, model, batch, cache_size):
     pos_all = torch.arange(S, device=x.device)
     kc = vc = None
     for l, blk in enumerate(model.blocks):
-        x, _, k, v = _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len,
-                                        dropless=True)
+        x, _, k, v = _decoder_block_fwd(cfg, x, rules.gather_data(blk),
+                                        pos_all, prefix_len, dropless=True)
         if kc is None:
             kc = k.new_zeros((cfg.n_layers, B, cache_size) + k.shape[2:])
             vc = torch.zeros_like(kc)
@@ -437,7 +502,7 @@ def decoder_decode_step(cfg, model, cache, batch):
         q, k, v = attention_qkv(cfg, h, blk["attn"], batch["pos"][:, None])
         kc, vc = _ring_step(cache, l, rows, slot, k, v)
         att = decode_attention(q, kc, vc, cache_len, window=window)
-        x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
+        x = _residual(x, rules.merge_heads(att) @ blk["attn"]["wo"])
         x = _ffn(cfg, x, blk, "ln2", dropless=True)
     x = apply_norm(cfg, x, model.final_norm)
     return (unembed(cfg, model, x)[:, 0].float(),
@@ -497,11 +562,13 @@ def encoder_forward(cfg, model, frames):
     pos = torch.arange(x.shape[1], device=x.device)
 
     def layer(x, blk):
+        x = rules.shard_seq(x)
         h = apply_norm(cfg, x, blk["ln1"])
         q, k, v = attention_qkv(cfg, h, blk["attn"], pos)
         att = flash_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        x = x + att.reshape(*x.shape[:2], -1) @ blk["attn"]["wo"]
-        return x + mlp_apply(cfg, apply_norm(cfg, x, blk["ln2"]), blk["mlp"])
+        x = _residual(x, rules.merge_heads(att) @ blk["attn"]["wo"])
+        return _residual(x, mlp_apply(cfg, apply_norm(cfg, x, blk["ln2"]),
+                                      blk["mlp"]))
 
     for blk in model.enc_blocks:
         x = _remat(cfg, layer, x, blk)
@@ -513,8 +580,9 @@ def _cross_kv(cfg, blk, enc_out):
     D] (no bias, as the reference's)."""
     B = enc_out.shape[0]
     shape = (B, -1, cfg.n_kv_heads, cfg.head_dim)
-    return ((enc_out @ blk["cross_attn"]["wk"]).reshape(shape),
-            (enc_out @ blk["cross_attn"]["wv"]).reshape(shape))
+    return tuple(rules.split_heads(enc_out @ blk["cross_attn"][w],
+                                   cfg.n_kv_heads).reshape(shape)
+                 for w in ("wk", "wv"))
 
 
 def _encdec_block_fwd(cfg, x, blk, pos, enc_out):
@@ -523,14 +591,16 @@ def _encdec_block_fwd(cfg, x, blk, pos, enc_out):
     h = apply_norm(cfg, x, blk["ln1"])
     q, k, v = attention_qkv(cfg, h, blk["self_attn"], pos)
     att = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    x = x + att.reshape(B, S, -1) @ blk["self_attn"]["wo"]
+    x = _residual(x, rules.merge_heads(att) @ blk["self_attn"]["wo"])
     h = apply_norm(cfg, x, blk["ln2"])
-    cq = (h @ blk["cross_attn"]["wq"]).reshape(B, S, cfg.n_heads,
+    cq = rules.split_heads(h @ blk["cross_attn"]["wq"],
+                           cfg.n_heads).reshape(B, S, cfg.n_heads,
                                                cfg.head_dim)
     ck, cv = _cross_kv(cfg, blk, enc_out)
     att = flash_attention(cq, ck, cv, causal=False, chunk=cfg.attn_chunk)
-    x = x + att.reshape(B, S, -1) @ blk["cross_attn"]["wo"]
-    x = x + mlp_apply(cfg, apply_norm(cfg, x, blk["ln3"]), blk["mlp"])
+    x = _residual(x, rules.merge_heads(att) @ blk["cross_attn"]["wo"])
+    x = _residual(x, mlp_apply(cfg, apply_norm(cfg, x, blk["ln3"]),
+                               blk["mlp"]))
     return x, k, v, ck, cv
 
 
@@ -560,7 +630,8 @@ def encdec_prefill(cfg, model, batch, cache_size):
     B, S = x.shape[:2]
     parts = []
     for blk in model.blocks:
-        x, *kv = _encdec_block_fwd(cfg, x, blk, pos, enc_out)
+        x, *kv = _encdec_block_fwd(cfg, x, rules.gather_data(blk), pos,
+                                   enc_out)
         parts.append(kv)
     ks, vs, cks, cvs = (torch.stack(t) for t in zip(*parts))
     kc = ks.new_zeros(ks.shape[:2] + (cache_size,) + ks.shape[3:])
@@ -598,14 +669,16 @@ def encdec_decode_step(cfg, model, cache, batch):
                                 batch["pos"][:, None])
         kc, vc = _ring_step(cache, l, rows, slot, k, v)
         att = decode_attention(q, kc, vc, cache_len)
-        x = x + att.reshape(B, 1, -1) @ blk["self_attn"]["wo"]
+        x = _residual(x, rules.merge_heads(att) @ blk["self_attn"]["wo"])
         # cross attention over the precomputed encoder KV
         h2 = apply_norm(cfg, x, blk["ln2"])
-        cq = (h2 @ blk["cross_attn"]["wq"]).reshape(B, 1, cfg.n_heads,
+        cq = rules.split_heads(h2 @ blk["cross_attn"]["wq"],
+                               cfg.n_heads).reshape(B, 1, cfg.n_heads,
                                                     cfg.head_dim)
         catt = decode_attention(cq, cache["ck"][l], cache["cv"][l], enc_len)
-        x = x + catt.reshape(B, 1, -1) @ blk["cross_attn"]["wo"]
-        x = x + mlp_apply(cfg, apply_norm(cfg, x, blk["ln3"]), blk["mlp"])
+        x = _residual(x, rules.merge_heads(catt) @ blk["cross_attn"]["wo"])
+        x = _residual(x, mlp_apply(cfg, apply_norm(cfg, x, blk["ln3"]),
+                                   blk["mlp"]))
     x = apply_norm(cfg, x, model.final_norm)
     return (unembed(cfg, model, x)[:, 0].float(),
             {**cache, "len": cache["len"] + 1})
@@ -647,7 +720,7 @@ def _hybrid_rec(cfg, x, sub):
     """A recurrent sublayer over the sequence -> (x, {"h", "conv"})."""
     h = apply_norm(cfg, x, sub["ln_mix"])
     y, st = rglru_lib.rglru_apply(cfg, h, sub["mix"], return_state=True)
-    return _ffn(cfg, x + y, sub, "ln_mlp"), st
+    return _ffn(cfg, _residual(x, y), sub, "ln_mlp"), st
 
 
 def _hybrid_attn(cfg, x, sub, pos):
@@ -656,7 +729,7 @@ def _hybrid_attn(cfg, x, sub, pos):
     q, k, v = attention_qkv(cfg, h, sub["mix"], pos)
     att = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                           window=cfg.local_window)
-    x = x + att.reshape(*x.shape[:2], -1) @ sub["mix"]["wo"]
+    x = _residual(x, rules.merge_heads(att) @ sub["mix"]["wo"])
     return _ffn(cfg, x, sub, "ln_mlp"), k, v
 
 
@@ -666,6 +739,7 @@ def hybrid_forward(cfg, model, batch):
     x, pos = _embed_seq(cfg, model, batch["tokens"])
 
     def group(x, g):
+        x = rules.shard_seq(x)
         x = _hybrid_rec(cfg, x, g["rec1"])[0]
         x = _hybrid_rec(cfg, x, g["rec2"])[0]
         return _hybrid_attn(cfg, x, g["attn"], pos)[0]
@@ -673,7 +747,7 @@ def hybrid_forward(cfg, model, batch):
     for g in model.groups:
         x = _remat(cfg, group, x, g)
     for sub in model.tail if "tail" in model else ():
-        x = _hybrid_rec(cfg, x, sub)[0]
+        x = _hybrid_rec(cfg, x, rules.gather_data(sub))[0]
     return (apply_norm(cfg, x, model.final_norm),
             torch.zeros((), device=x.device))
 
@@ -686,7 +760,7 @@ def hybrid_prefill(cfg, model, batch, cache_size):
     B, S = x.shape[:2]
     W = min(cache_size, cfg.local_window)
     parts = []
-    for g in model.groups:
+    for g in map(rules.gather_data, model.groups):
         x, st1 = _hybrid_rec(cfg, x, g["rec1"])
         x, st2 = _hybrid_rec(cfg, x, g["rec2"])
         x, k, v = _hybrid_attn(cfg, x, g["attn"], pos)
@@ -697,7 +771,7 @@ def hybrid_prefill(cfg, model, batch, cache_size):
     cache["len"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     if "tail" in model:
         tail = []
-        for sub in model.tail:
+        for sub in map(rules.gather_data, model.tail):
             x, st = _hybrid_rec(cfg, x, sub)
             tail.append((st["h"], st["conv"]))
         cache["th"], cache["tconv"] = (torch.stack(t) for t in zip(*tail))
@@ -733,7 +807,7 @@ def _hybrid_rec_step(cfg, x, sub, h, conv):
     hin = apply_norm(cfg, x, sub["ln_mix"])
     y, st = rglru_lib.rglru_decode_step(cfg, hin, sub["mix"],
                                         {"h": h, "conv": conv})
-    return _ffn(cfg, x + y, sub, "ln_mlp"), st["h"], st["conv"]
+    return _ffn(cfg, _residual(x, y), sub, "ln_mlp"), st["h"], st["conv"]
 
 
 def hybrid_decode_step(cfg, model, cache, batch):
@@ -754,7 +828,7 @@ def hybrid_decode_step(cfg, model, cache, batch):
         q, k, v = attention_qkv(cfg, h, sub["mix"], batch["pos"][:, None])
         kc, vc = _ring_step(cache, gi, rows, slot, k, v)
         att = decode_attention(q, kc, vc, cache_len)
-        x = x + att.reshape(B, 1, -1) @ sub["mix"]["wo"]
+        x = _residual(x, rules.merge_heads(att) @ sub["mix"]["wo"])
         x = _ffn(cfg, x, sub, "ln_mlp")
         parts.append((h1, c1, h2, c2))
     new = {**cache, "len": cache["len"] + 1}
@@ -792,8 +866,10 @@ def ssm_forward(cfg, model, batch):
     x = _embed_seq(cfg, model, batch["tokens"])[0]
 
     def layer(x, blk):
+        x = rules.shard_seq(x)
         h = apply_norm(cfg, x, blk["ln1"])
-        return x + ssm_lib.ssd_apply(cfg, h, blk["ssm"], chunk=cfg.ssd_chunk)
+        return _residual(x, ssm_lib.ssd_apply(cfg, h, blk["ssm"],
+                                              chunk=cfg.ssd_chunk))
 
     for blk in model.blocks:
         x = _remat(cfg, layer, x, blk)
@@ -807,11 +883,11 @@ def ssm_prefill(cfg, model, batch, cache_size=0):
     ``cache_size`` is unused."""
     x = _embed_seq(cfg, model, batch["tokens"])[0]
     sts, cvs = [], []
-    for blk in model.blocks:
+    for blk in map(rules.gather_data, model.blocks):
         h = apply_norm(cfg, x, blk["ln1"])
         y, st = ssm_lib.ssd_apply(cfg, h, blk["ssm"], chunk=cfg.ssd_chunk,
                                   return_state=True)
-        x = x + y
+        x = _residual(x, y)
         sts.append(st["ssm"])
         cvs.append(st["conv"])
     cache = {"ssm": torch.stack(sts), "conv": torch.stack(cvs),
@@ -841,7 +917,7 @@ def ssm_decode_step(cfg, model, cache, batch):
         y, ns = ssm_lib.ssd_decode_step(
             cfg, h, blk["ssm"], {"ssm": cache["ssm"][l],
                                  "conv": cache["conv"][l]})
-        x = x + y
+        x = _residual(x, y)
         sts.append(ns["ssm"])
         cvs.append(ns["conv"])
     x = apply_norm(cfg, x, model.final_norm)

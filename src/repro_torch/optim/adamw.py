@@ -12,6 +12,14 @@ the repository).
 Unlike the reference's, which returns new trees, :func:`adamw_update`
 writes the new parameters and moments into the tensors it is given (no
 second copy of a 1B model's float32 moments) and returns them.
+
+On DTensors (the sharded step, ``launch/steps.py::sharded``) the moments
+keep their own placements (``sharding/rules.py::opt_specs``, ZeRO-1):
+each gradient is redistributed to its moment's placement first — the
+reduce-scatter (or all-reduce) that GSPMD inserts — so the global norm is
+a sum of each rank's share, one replicated scalar, and the new parameter
+is computed in the moment's placement and redistributed back to the
+parameter's (the all-gather).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +63,9 @@ def cosine_schedule(cfg: AdamWConfig, step):
 
 
 def adamw_init(params) -> dict:
-    """Zero float32 moments per parameter and step 0."""
+    """Zero float32 moments per parameter (placed as it is) and step 0."""
     named = _named(params)
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
     dev = next(iter(named.values())).device
     return {"m": {n: zeros32(p) for n, p in named.items()},
             "v": {n: zeros32(p) for n, p in named.items()},
@@ -66,9 +74,30 @@ def adamw_init(params) -> dict:
 
 def global_norm(tree):
     """sqrt of the sum of squares of every tensor (a dict's values or an
-    iterable), in float32."""
+    iterable), in float32.  DTensor leaves sum by placements first (each
+    group's sum one scalar, partial over the mesh dims the group shards),
+    then the groups' sums, reduced, add up: one replicated scalar."""
     leaves = tree.values() if isinstance(tree, dict) else tree
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    squares = (torch.sum(torch.square(x.float())) for x in leaves)
+    groups = {}
+    for sq in squares:
+        key = tuple(sq.placements) if isinstance(sq, DTensor) else None
+        groups[key] = sq if key not in groups else groups[key] + sq
+    total = None
+    for key, sq in groups.items():
+        if key is not None:
+            sq = sq.redistribute(sq.device_mesh,
+                                 [Replicate()] * sq.device_mesh.ndim)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _placed_like(t, ref):
+    """``t`` in ``ref``'s placements where both are DTensors, else ``t``."""
+    if isinstance(ref, DTensor) and isinstance(t, DTensor) and \
+            tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 @torch.no_grad()
@@ -80,6 +109,7 @@ def adamw_update(cfg: AdamWConfig, params, grads: dict, state: dict):
     named = _named(params)
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
+    grads = {n: _placed_like(grads[n], state["m"][n]) for n in named}
     gnorm = global_norm(grads[n] for n in named)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-6), max=1.0)
     bc1 = 1 - cfg.b1 ** step.float()
@@ -91,8 +121,8 @@ def adamw_update(cfg: AdamWConfig, params, grads: dict, state: dict):
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
         mhat = m / bc1
         vhat = v / bc2
-        p32 = p.float()
+        p32 = _placed_like(p, m).float()
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        p.copy_(_placed_like(p32 - lr * delta, p))
     return params, {"m": state["m"], "v": state["v"], "step": step}, {
         "grad_norm": gnorm, "lr": lr}

@@ -1,3 +1,4 @@
-"""Sharding rules for tensor-parallel serving: how a decoder LM's weights
-(dense, MoE and the VLM's text decoder) and the paged KV arena split over a
-serving mesh (``rules.py``)."""
+"""Sharding rules (``rules.py``): the reference's specs for parameters,
+optimizer state, batches and caches, as DTensor placements on a device
+mesh for the sharded step and its annotations, and the serving cut of a
+decoder LM's weights and paged KV arena over a serving mesh."""

@@ -613,3 +613,52 @@ def test_cuda_expert_parallel_engine_matches_cpu(cuda, monkeypatch):
         assert st.warnings_fired == int(eng.pool.clock.cpu())
         out.append(([r.generated for r in reqs], st.steps, st.preemptions))
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_step_at_world_size_one(cuda):
+    """``launch/steps.py::sharded`` on the card: a (1, 1) mesh over NCCL
+    (one rank: a card cannot hold two), reduced olmo-1b in float32 with
+    TF32 off; the loss and every gradient equal the unsharded step's
+    within 1e-4 abs/rel (the CPU tests' tolerance on their 8-rank
+    worlds)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+    from repro_torch.launch.steps import sharded, step_specs
+    from repro_torch.models import build_model
+    from torch_world import free_port
+
+    cfg = reduced(get_config("olmo-1b"))
+    model = build_model(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), device=cuda,
+                                     generator=torch.Generator(
+                                         device=cuda).manual_seed(1))}
+
+    def loss_grads(params, batch):
+        loss, _ = model.loss(params, batch)
+        names, leaves = zip(*params.named_parameters())
+        return loss.detach(), dict(zip(names, torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rank=0, world_size=1, device_type="cuda",
+                     port=free_port())
+    try:
+        want, want_g = loss_grads(
+            model.init(0, torch.float32, cuda).requires_grad_(True), batch)
+        mesh = make_device_mesh((1, 1), device_type="cuda")
+        params = model.init(0, torch.float32, cuda).requires_grad_(True)
+        ins, _ = step_specs(cfg, "train", mesh, params, batch)
+        got, got_g = sharded(loss_grads, mesh, (ins[0], ins[2]),
+                             (None, None))(params, batch)
+        tol = dict(atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got.to_local(), want, **tol)
+        for n, g in want_g.items():
+            torch.testing.assert_close(got_g[n].to_local(), g, **tol,
+                                       msg=lambda m: f"{n}: {m}")
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cuda.matmul.allow_tf32 = tf32

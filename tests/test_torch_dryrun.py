@@ -13,8 +13,9 @@ counts, the dry run's per-device argument bytes, and the CLI.
   argument the step never reads — ``keep_unused=False``: whisper's decode
   reads no encoder weight, mamba2's no ``len`` — so those cells are not
   held here.)
-- The CLI writes one record per cell (``ok`` with the ideal split of the
-  count, or ``skipped``), and ``roofline`` renders them.
+- The CLI writes one record per cell (``ok`` with one device's count of
+  the sharded step and its collectives, or ``skipped``), and ``roofline``
+  renders them.
 """
 
 import dataclasses
@@ -127,17 +128,21 @@ def test_cli_writes_records_that_roofline_renders(tmp_path):
     rec = recs["mamba2-780m_decode_32k_pod16x16.json"]
     assert rec["status"] == "ok", rec.get("traceback")
     h = rec["hlo"]
-    assert h["split"] == "ideal" and h["devices"] == 256
-    assert h["dot_flops"] == h["step_dot_flops"] / 256 > 0
-    assert h["collective_bytes_total"] is None
+    assert h["split"] == "sharded" and h["devices"] == 256
+    assert h["dot_flops"] > 0 and h["hbm_bytes"] > 0
+    assert h["collective_bytes_total"] == sum(
+        h["collective_bytes"].values()) > 0
+    assert set(h["collective_counts"]) == set(h["collective_bytes"])
     assert rec["memory"]["temp_bytes"] is None
     assert rec["memory"]["argument_bytes"] == \
         rec["memory"]["arguments"]["total"] > 0
     rows = roofline.build_table(str(tmp_path))
     assert [r["status"] for r in rows] == ["ok", "ok", "skipped"]
     ok = rows[0]
-    assert ok["collective_s"] is None and ok["dominant"] == "memory"
+    assert ok["collective_s"] == h["collective_bytes_total"] / roofline.LINK_BW
     assert ok["memory_s"] == h["hbm_bytes"] / roofline.HBM_BW
+    assert ok["dominant_s"] == max(ok["compute_s"], ok["memory_s"],
+                                   ok["collective_s"])
     assert ok["native_floor_gib"] == roofline.decode_native_floor_gib(
         "mamba2-780m", "decode_32k")
     md = roofline.render_markdown(rows)

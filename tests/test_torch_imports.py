@@ -146,3 +146,23 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_missing_gpu(monkeypatch):
     # the build cache is keyed on the source: every kernel has its own key
     assert len({build._target(n).parent for n in build.SOURCES}) == \
         len(build.SOURCES)
+
+
+def test_device_meshes_raise_without_cuda_and_on_a_wrong_world(monkeypatch):
+    """``make_device_mesh`` and ``init_distributed`` never fall back to the
+    CPU, and a mesh must cover the process group exactly."""
+    from repro_torch.launch.abstract import fake_world
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_device_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed(rank=0, world_size=1)
+    with pytest.raises(RuntimeError, match="init_distributed first"):
+        make_device_mesh((1, 1), device_type="cpu")
+    with fake_world(8):
+        with pytest.raises(RuntimeError, match="needs 4 ranks"):
+            make_device_mesh((2, 2), device_type="cpu")
+        mesh = make_device_mesh((2, 4), device_type="cpu")
+        assert mesh.mesh_dim_names == ("data", "model")
