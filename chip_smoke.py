@@ -171,7 +171,48 @@ run with a nonzero exit and no result line.
    parameters are bitwise, ms/step of both beside phase (h)'s.  The process group is
    destroyed afterwards.  (A card cannot hold two NCCL ranks: multi-rank
    runs are the CPU tests' gloo worlds.)
-9. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
+9. The pool's public functions (j), at a deployment's size: 32768 pages
+   (a full-depth olmo-1b page of 16 bf16 tokens is 2 MiB, so 64 GiB of
+   KV) in superblocks of 8, 64 rows.  (1) A seeded sequence of 300
+   public calls (``alloc_pages_batch`` with ``max_grow=4``,
+   ``alloc_pages``, ``share_pages``, ``unshare_pages``/``free_pages``,
+   ``release_empty_superblocks``/``map_superblocks`` with ints and 0-dim
+   tensors, ``snapshot_versions``, ``validate_and_commit``,
+   ``validate_read``) on a pool on the card and one on the CPU: after
+   every call the six state tensors and every returned value bitwise
+   equal; over the card's run no page granted twice while live, a version
+   moved only by a zero-transition or a release (+1), the clock equal to
+   the batches that reclaimed something.  ``append_kv`` and ``gather_kv``
+   bitwise card against CPU over the same writes (−1 pages, positions past
+   the table, ids past the arena).  (2) Each of the 13 public functions
+   called once under sync debug mode "error".  (3) The OA read protocol
+   with kernel 1: one layer's arena from ``kv_pages_init(32768, 16, 16,
+   128)`` (4.3 GB bf16), 64 rows grown by ``alloc_pages_batch`` and
+   written by ``append_kv`` over 200 steps, ``snapshot_versions``, kernel
+   1 (``kernels/ops.py::paged_attention``) within 2e-2 of plain attention
+   over ``gather_kv``'s rows; then a third of the rows freed, their pages
+   re-granted to other rows and overwritten, one superblock released;
+   kernel 1 through the stale tables (finite: the arena is persistent),
+   ``validate_and_commit`` and ``validate_read`` false for exactly the
+   moved rows, the other rows' outputs bitwise those of the first read;
+   kernel 1 launched exactly twice.  Printed: each public function's call
+   ms (CUDA events, 20 calls).
+10. The host layer (k), on the card's host: ``benchmarks/memory_release.py
+   ::run(quick=False)`` through ``repro_torch.core`` — 100000 keys into a
+   ``MichaelHashTable`` under ``OAVer`` over ``LRMalloc(512 x 64 KiB)``,
+   each ``ReleaseStrategy``, all deleted, ``flush``, ``flush_all_caches``,
+   then the keys inserted again.  Held: every insert and delete true, the
+   table empty, ``nodes_freed`` over 90% of the keys, superblocks retired
+   (``persistent_released`` > 0: the reference counts the EMPTY
+   transition under every strategy; under ``KEEP`` no remap and Pss kept
+   within 90%, as ``tests/test_allocator.py`` holds it), every
+   superblock's range read back, the second fill taking fewer fresh
+   superblocks than the first and reusing parked ranges; the
+   ``Allocator`` protocol exerciser of ``tests/test_layering.py`` on
+   ``HostAllocator`` and on a ``DevicePagePool`` on the card; no kernel
+   launched.  Printed, not held: peak and after Pss and Rss, whether they
+   shrank, superblocks, seconds.
+11. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
    ``decode_32k`` on the production mesh, in a child process that sees no
    card (started after the build, collected at the end): each cell's
    sharded step runs as rank 0 of a fake process group of 256 ranks.
@@ -3151,6 +3192,551 @@ def sharded_train_phase(name, measured):
     gc_cuda()
 
 
+
+# -- (j) the pool's public functions, (k) the host layer ----------------------
+
+POOL_PAGES = 32768  # 64 GiB of full-depth olmo-1b pages (2 MiB each)
+POOL_SB = 8  # pages a superblock
+POOL_B = 64  # rows
+POOL_CALLS = 300  # public calls of gate 1's seeded sequence
+KV_PAGE, KV_HEADS, KV_DIM = 16, 16, 128  # olmo-1b's page, KV heads, head dim
+OA_STEPS = 200  # append_kv steps of gate 3
+HOST_KEYS = 100_000  # benchmarks/memory_release.py::run(quick=False)
+
+
+class PoolPair:
+    """One pool on the card and one on the CPU, driven through the public
+    functions of ``core/pagepool.py`` together: after every call the six
+    state tensors and every returned value must be bitwise equal."""
+
+    def __init__(self, num_pages, pages_per_superblock):
+        from repro_torch.core import pagepool as pp
+
+        self.pp = pp
+        self.pools = {d: pp.pool_init(num_pages, pages_per_superblock,
+                                      device=d) for d in ("cuda", "cpu")}
+        self.calls = 0
+
+    def __call__(self, name, *args):
+        """``args``: numpy arrays and 0-dim numpy scalars (each device gets
+        a tensor of them) or ints.  Returns the card's values on the host
+        (numpy; a pool return replaces the pair's pools)."""
+        import numpy as np
+        import torch
+
+        outs = {}
+        for dev, pool in self.pools.items():
+            targs = [torch.as_tensor(a, device=dev)
+                     if isinstance(a, (np.ndarray, np.generic)) else a
+                     for a in args]
+            out = getattr(self.pp, name)(pool, *targs)
+            out = out if isinstance(out, tuple) and \
+                not isinstance(out, self.pp.PagePool) else (out,)
+            if isinstance(out[0], self.pp.PagePool):
+                self.pools[dev], out = out[0], out[1:]
+            outs[dev] = [t.cpu() for t in out]
+        self.calls += 1
+        for field, a, b in zip(self.pp.PagePool._fields, self.pools["cuda"],
+                               self.pools["cpu"]):
+            check(torch.equal(a.cpu(), b), f"pool api: {name}: {field} on "
+                  f"the card differs from the CPU's")
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"pool api: {name}: a returned value on the card differs "
+                  f"from the CPU's")
+        vals = [t.numpy() for t in outs["cuda"]]
+        return vals[0] if len(vals) == 1 else tuple(vals)
+
+    def host(self, field):
+        return getattr(self.pools["cuda"], field).cpu().numpy()
+
+
+def pool_sequence(pair, seed=21):
+    """Gate 1: a seeded sequence of :data:`POOL_CALLS` public calls, mixed
+    as ``tests/test_pagepool.py::test_share_unshare_free_release_
+    interleavings`` mixes them, on both pools of ``pair``; over the card's
+    run: no page granted twice while live, a version moves only on a
+    zero-transition (+1) or a release (+1 over the released superblocks'
+    pages), the clock equals the batches that reclaimed something.  Returns
+    the op counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, K = POOL_B, POOL_SB
+    S = POOL_PAGES // K
+    refs: dict[int, int] = {}
+    batches = 0
+    last = None  # (pages, snapshot) of the last snapshot_versions
+    counts: dict[str, int] = {}
+    ops = ["alloc_pages_batch", "alloc_pages", "share_pages", "unshare_pages",
+           "free_pages", "release_empty_superblocks", "map_superblocks",
+           "snapshot_versions", "validate_and_commit", "validate_read"]
+    probs = [.24, .08, .1, .12, .12, .08, .08, .06, .06, .06]
+
+    def scalar(x):  # ints and 0-dim tensors both
+        return int(x) if rng.random() < 0.5 else np.int32(x)
+
+    def table():
+        live = sorted(refs)
+        pages = np.full((B, 16), -1, np.int32)
+        if live:
+            pick = rng.random(pages.shape) < 0.85
+            pages[pick] = rng.choice(live, int(pick.sum()))
+        return pages
+
+    for _ in range(POOL_CALLS):
+        op = str(rng.choice(ops, p=probs))
+        counts[op] = counts.get(op, 0) + 1
+        live = sorted(refs)
+        v0, rc0, m0 = (pair.host(f) for f in ("page_version",
+                                               "page_refcount", "sb_mapped"))
+        zero, released = set(), np.zeros(S, bool)
+        if op == "alloc_pages_batch":
+            need = rng.integers(0, 6, B).astype(np.int32)  # some past 4
+            grants, ok = pair(op, need, 4)
+            got = grants[grants >= 0].tolist()
+            check(len(set(got)) == len(got) and not set(got) & set(refs),
+                  "pool api: a page granted twice while live")
+            check(bool(ok) == bool((grants >= 0).sum(1).tolist()
+                                   == np.minimum(need, 4).tolist()),
+                  "pool api: alloc_pages_batch's ok disagrees with its grants")
+            refs.update((p, 1) for p in got)
+        elif op == "alloc_pages":
+            pages, ok = pair(op, int(rng.integers(1, 300)))
+            got = pages[pages >= 0].tolist()
+            check(not set(got) & set(refs) and (len(got) > 0) == bool(ok),
+                  "pool api: alloc_pages granted a live page")
+            refs.update((p, 1) for p in got)
+        elif op == "share_pages":
+            ids = rng.choice(live, int(rng.integers(1, 17))).tolist() \
+                if live else []
+            if rng.random() < 0.2 or not live:
+                ids.append(int(rng.integers(0, POOL_PAGES)))  # maybe free
+            ids.append(-1)
+            ok = pair(op, np.asarray(ids, np.int32))
+            check(bool(ok) == all(p < 0 or p in refs for p in ids),
+                  "pool api: share_pages' answer")
+            for p in ids:  # a free page's increment alone is suppressed
+                if p in refs:
+                    refs[p] += 1
+        elif op in ("unshare_pages", "free_pages"):
+            ids = rng.choice(live, min(len(live), int(rng.integers(1, 200))),
+                             replace=False).tolist() if live else []
+            pair(op, np.asarray(ids + [-1, -1], np.int32))
+            for p in ids:
+                refs[p] -= 1
+                if not refs[p]:
+                    del refs[p]
+                    zero.add(p)
+        elif op == "release_empty_superblocks":
+            n, npg = pair(op, scalar(rng.integers(0, 65)),
+                          scalar(rng.integers(0, S)))
+            released = m0 & ~pair.host("sb_mapped")
+            check(int(n) == released.sum() and int(npg) == K * int(n),
+                  "pool api: release counts")
+        elif op == "map_superblocks":
+            n, npg = pair(op, scalar(rng.integers(0, 65)))
+            check(int(npg) == K * int(n), "pool api: map counts")
+        elif op == "snapshot_versions":
+            pages = table()
+            last = pages, pair(op, pages)
+        elif last is not None:  # validate_and_commit, validate_read
+            pages, snap = last
+            out = pair(op, pages, snap)
+            cur = pair("snapshot_versions", pages)
+            valid = out[0] if op == "validate_and_commit" else out
+            want = (cur == snap).all(-1) if op == "validate_and_commit" \
+                else (cur == snap).all()
+            check(np.array_equal(valid, want), f"pool api: {op}'s answer")
+        v1, rc1 = pair.host("page_version"), pair.host("page_refcount")
+        check(sorted(np.flatnonzero(rc1).tolist()) == sorted(refs)
+              and all(rc1[p] == c for p, c in refs.items()),
+              f"pool api: {op}: refcounts off the host model")
+        moved = np.flatnonzero(v1 != v0)
+        want = sorted(zero | set(np.flatnonzero(
+            np.repeat(released, K)).tolist()))
+        check(moved.tolist() == want
+              and ((v1[moved] - v0[moved]) % 2**32 == 1).all(),
+              f"pool api: {op} moved versions {moved[:8].tolist()}..., want "
+              f"{want[:8]}... (a zero-transition or a release only)")
+        check(sorted(zero) == sorted(set(np.flatnonzero((rc0 > 0)
+                                                       & (rc1 == 0)))),
+              f"pool api: {op}: zero-transitions off the host model")
+        batches += bool(zero) or bool(released.any())
+        check(int(pair.host("clock")) == batches,
+              f"pool api: clock {int(pair.host('clock'))}, want {batches}")
+    return counts, batches
+
+
+def plain_attention(q, kv, bt, lengths):
+    """Decode attention over ``gather_kv``'s rows, in float32: the plain
+    version gate 3 holds kernel 1 to."""
+    import torch
+
+    from repro_torch.core.pagepool import gather_kv
+
+    B, Hq, D = q.shape
+    out = torch.zeros(B, Hq, D, device=q.device)
+    for r in range(B):
+        n = int(lengths[r])
+        k, v = (x[:n].float() for x in gather_kv(kv, bt[r],
+                                                  bt.shape[1] * KV_PAGE))
+        w = torch.softmax(torch.einsum("hd,thd->ht", q[r].float(), k)
+                          / math.sqrt(D), -1)
+        out[r] = torch.einsum("ht,thd->hd", w, v)
+    return out
+
+
+def oa_read_protocol(card):
+    """Gate 3: the OA read protocol with kernel 1 at the deployment's size
+    (module docstring, (j) 3).  Returns the pool, arena, tables and a
+    snapshot for the timings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pagepool as pp
+    from repro_torch.kernels.ops import paged_attention
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    B, M = POOL_B, -(-OA_STEPS // KV_PAGE) + 3
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    pool = pp.pool_init(POOL_PAGES, POOL_SB, device=dev)
+    t0 = time.perf_counter()
+    kv = pp.kv_pages_init(POOL_PAGES, KV_PAGE, KV_HEADS, KV_DIM,
+                          torch.bfloat16, device=dev)
+    bt = torch.full((B, M), -1, dtype=torch.int32, device=dev)
+    lengths = torch.zeros(B, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    target = OA_STEPS - rows % 8 * 10  # rows end at 130-200 tokens
+
+    def token():
+        return torch.randn((B, KV_HEADS, KV_DIM), generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    def grow(pool, kv, bt, lengths, active):
+        need = (active & (lengths % KV_PAGE == 0)).to(torch.int32)
+        pool, grants, ok = pp.alloc_pages_batch(pool, need, 1)
+        col = (lengths // KV_PAGE).long()
+        put = torch.zeros_like(bt, dtype=torch.bool)
+        put[rows, col] = need.bool()
+        bt = torch.where(put, grants[:, :1].expand_as(bt), bt)
+        # inactive rows write through a −1 table: append_kv drops them
+        kv = pp.append_kv(kv, torch.where(active[:, None], bt, -1), lengths,
+                          token(), token())
+        return pool, kv, bt, lengths + active.to(torch.int32), ok
+
+    oks = []
+    for _ in range(OA_STEPS):
+        pool, kv, bt, lengths, ok = grow(pool, kv, bt, lengths,
+                                         lengths < target)
+        oks.append(ok)
+    torch.cuda.synchronize()
+    check(bool(torch.stack(oks).all()) and torch.equal(lengths, target.int()),
+          f"oa protocol: growth failed, lengths {lengths.tolist()[:8]}...")
+    fill_s = time.perf_counter() - t0
+    snap = pp.snapshot_versions(pool, bt)
+    q = torch.randn((B, KV_HEADS, KV_DIM), generator=g,
+                    device=dev).to(torch.bfloat16)
+    reset_launches()
+    first = paged_attention(q, kv, bt, lengths)
+    err = (first.float() - plain_attention(q, kv, bt, lengths)).abs().max()
+    check(float(err) <= 2e-2, f"oa protocol: kernel 1 against plain "
+          f"attention over gather_kv's rows: max err {float(err)} (tol 2e-2)")
+    # a third of the rows lose every page; other rows get them, and write
+    moved = rows % 3 == 0
+    old_bt = bt.clone()
+    pool = pp.free_pages(pool, torch.where(moved[:, None], bt, -1))
+    n_moved = int(moved.sum())
+    new_bt = torch.full((n_moved, M), -1, dtype=torch.int32, device=dev)
+    pool, grants, ok = pp.alloc_pages_batch(
+        pool, torch.full((n_moved,), M - 3, dtype=torch.int32, device=dev),
+        M - 3)
+    new_bt[:, :M - 3] = grants
+    regranted = set(grants.flatten().tolist()) & \
+        set(old_bt[moved].flatten().tolist())
+    new_len = torch.zeros(n_moved, dtype=torch.int32, device=dev)
+    for _ in range(2 * KV_PAGE):
+        k = torch.randn((n_moved, KV_HEADS, KV_DIM), generator=g,
+                        device=dev).to(torch.bfloat16)
+        kv = pp.append_kv(kv, new_bt, new_len, k, -k)
+        new_len += 1
+    pool, n_rel, _ = pp.release_empty_superblocks(pool, 1, 0)
+    again = paged_attention(q, kv, old_bt, lengths)  # stale tables
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    check(launches == {"paged_attention_cuda": 2,
+                       "paged_attention_append_cuda": 0,
+                       "kv_append_cuda": 0, "paged_attention_sharded": 0},
+          f"oa protocol: kernel launches {launches}, want kernel 1 twice")
+    check(bool(ok) and int(n_rel) == 1 and bool(torch.isfinite(
+        again.float()).all()), "oa protocol: re-grant, release or the "
+        "stale read failed")
+    valid, _ = pp.validate_and_commit(pool, old_bt, snap)
+    reads = torch.stack([pp.validate_read(pool, old_bt[r], snap[r])
+                         for r in range(B)])
+    check(torch.equal(valid, ~moved) and torch.equal(reads, ~moved),
+          f"oa protocol: validity {valid.int().tolist()}, read "
+          f"{reads.int().tolist()}, want every row but the moved ones")
+    keep = ~moved
+    check(torch.equal(again[keep], first[keep]),
+          "oa protocol: a row that validates read other values")
+    changed = int((again[moved] != first[moved]).any(-1).any(-1).sum())
+    log(f"pool api: (j) 3 the OA read protocol on {card}: {B} rows grown "
+        f"over {OA_STEPS} append_kv steps into a {POOL_PAGES}-page arena "
+        f"({2 * kv['k'].numel() * 2 / 1e9:.2f} GB bf16; fill {fill_s:.1f} s "
+        f"with growth from alloc_pages_batch), kernel 1 within "
+        f"{float(err):.3g} of plain attention over gather_kv (tol 2e-2); "
+        f"{n_moved} rows freed, {len(regranted)} of their pages re-granted "
+        f"and overwritten, 1 superblock released; kernel 1 through the stale "
+        f"tables: finite, no fault; validate_and_commit and validate_read "
+        f"flag exactly the {n_moved} moved rows; the {B - n_moved} others "
+        f"read bitwise what they read before ({changed} moved rows read "
+        f"other values); kernel 1 launched twice")
+    return pool, kv, bt, lengths, snap
+
+
+def append_gather_parity():
+    """``append_kv`` and ``gather_kv`` on the card bitwise equal to the
+    CPU's over the same writes: −1 pages, positions past the table, ids
+    past the arena (a 512-page arena of the deployment's page shape)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pagepool as pp
+
+    rng = np.random.default_rng(22)
+    P, B, M = 512, 16, 6
+    bt = rng.permutation(P)[:B * M].reshape(B, M).astype(np.int32)
+    bt[rng.random(bt.shape) < 0.2] = -1
+    lengths = rng.integers(0, M * KV_PAGE + 8, B).astype(np.int32)
+    kvs = {d: pp.kv_pages_init(P, KV_PAGE, KV_HEADS, KV_DIM, torch.bfloat16,
+                               device=d) for d in ("cuda", "cpu")}
+    for _ in range(24):
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (B, KV_HEADS, KV_DIM)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+        for d in kvs:
+            kvs[d] = pp.append_kv(kvs[d], torch.as_tensor(bt, device=d),
+                                  torch.as_tensor(lengths, device=d),
+                                  k.to(d), v.to(d))
+        lengths += 1
+    for n in ("k", "v"):
+        check(torch.equal(kvs["cuda"][n].cpu(), kvs["cpu"][n]),
+              "pool api: append_kv on the card differs from the CPU's")
+    for row in (bt[0], bt[3], np.asarray([-1, P + 5, 7, -1, 0, P - 1])):
+        for a, b in zip(*(pp.gather_kv(kvs[d], torch.as_tensor(
+                row.astype(np.int32), device=d), M * KV_PAGE) for d in kvs)):
+            check(torch.equal(a.cpu(), b),
+                  "pool api: gather_kv on the card differs from the CPU's")
+
+
+def pool_api_phase(card):
+    """Phase 9 (j): the pool's public functions on the card at a
+    deployment's size (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pagepool as pp
+
+    gc_cuda()
+    t0 = time.perf_counter()
+    pair = PoolPair(POOL_PAGES, POOL_SB)
+    counts, batches = pool_sequence(pair)
+    log(f"pool api: (j) 1 {pair.calls} public calls on a {POOL_PAGES}-page "
+        f"pool ({POOL_PAGES // POOL_SB} superblocks of {POOL_SB}, {POOL_B} "
+        f"rows, alloc_pages_batch max_grow 4) on the card and on the CPU: "
+        f"state and returns bitwise equal after every call; no page granted "
+        f"twice, versions moved only on zero-transitions and releases, clock "
+        f"{batches} = the reclaiming batches; calls {counts} "
+        f"({time.perf_counter() - t0:.1f} s on {card})")
+    append_gather_parity()
+    log("pool api: append_kv and gather_kv on the card bitwise equal to the "
+        "CPU's (-1 pages, positions past the table, ids past the arena)")
+
+    pool, kv, bt, lengths, snap = oa_read_protocol(card)
+    B = POOL_B
+    dev = torch.device("cuda")
+    need = torch.ones(B, dtype=torch.int32, device=dev)
+    pages = bt[:, :4].contiguous()
+    five = torch.tensor(5, dtype=torch.int32, device=dev)
+    small = pp.kv_pages_init(64, KV_PAGE, KV_HEADS, KV_DIM, torch.bfloat16,
+                             device=dev)
+    small_bt = torch.arange(B, dtype=torch.int32, device=dev)[:, None] \
+        .expand(B, 2).contiguous()
+    small_bt[::7, 0] = -1
+    small_len = (torch.arange(B, device=dev) % (2 * KV_PAGE)).int()
+    kn = torch.zeros((B, KV_HEADS, KV_DIM), dtype=torch.bfloat16, device=dev)
+    calls = {
+        "alloc_pages_batch": lambda: pp.alloc_pages_batch(pool, need, 4),
+        "alloc_pages": lambda: pp.alloc_pages(pool, 64),
+        "unshare_pages": lambda: pp.unshare_pages(pool, pages),
+        "free_pages": lambda: pp.free_pages(pool, pages),
+        "share_pages": lambda: pp.share_pages(pool, pages),
+        "release_empty_superblocks":
+            lambda: pp.release_empty_superblocks(pool, five, 1),
+        "map_superblocks": lambda: pp.map_superblocks(pool, five),
+        "snapshot_versions": lambda: pp.snapshot_versions(pool, bt),
+        "validate_and_commit": lambda: pp.validate_and_commit(pool, bt, snap),
+        "validate_read": lambda: pp.validate_read(pool, bt, snap),
+        "kv_pages_init": lambda: pp.kv_pages_init(
+            64, KV_PAGE, KV_HEADS, KV_DIM, torch.bfloat16, device=dev),
+        "append_kv": lambda: pp.append_kv(small, small_bt, small_len, kn, kn),
+        "gather_kv": lambda: pp.gather_kv(kv, bt[0], bt.shape[1] * KV_PAGE),
+    }
+    check(sorted(calls) == sorted(n for n in pp.__all__ if n[0].islower()
+                                  and n not in ("pool_init",
+                                                "superblock_states")),
+          "pool api: gate 2 must call every public function")
+    for fn in calls.values():  # warm: the allocator holds every block
+        fn()
+    torch.cuda.synchronize()
+    with no_host_reads(dev):  # gate 2
+        for fn in calls.values():
+            fn()
+    torch.cuda.synchronize()
+    log(f"pool api: (j) 2 each of the {len(calls)} public functions called "
+        f"once under sync debug mode 'error': no host sync")
+    arena_calls = {
+        "append_kv (full arena)": lambda: pp.append_kv(
+            kv, bt, torch.clamp(lengths - 1, min=0), kn, kn)}
+    ms = {n: time_ms(fn) for n, fn in {**calls, **arena_calls}.items()}
+    log(f"pool api: call ms (CUDA events, mean of 20 back-to-back calls) at "
+        f"{POOL_PAGES} pages, {POOL_B} rows, a {bt.shape[1]}-column table "
+        f"(kv_pages_init, append_kv: a 64-page arena; 'full arena': the "
+        f"{POOL_PAGES}-page one, which each call copies) on {card}: "
+        + json.dumps({n: round(v, 4) for n, v in ms.items()}))
+    del pool, kv, small, pair
+    gc_cuda()
+    return ms
+
+
+def exercise_protocol(alloc):
+    """``tests/test_layering.py::_exercise``: the ``Allocator`` protocol's
+    share/free/version/release contract on one implementation (a device
+    pool's snapshot is read back to the host)."""
+    import torch
+
+    from repro_torch.core.allocator import Allocator
+
+    def snapshot(ids):
+        return torch.as_tensor(alloc.snapshot(ids)).cpu().tolist()
+
+    check(isinstance(alloc, Allocator), "host: not an Allocator")
+    ids, ok = alloc.alloc(3)
+    check(ok and len(ids) == 3, "host: alloc(3)")
+    base = snapshot(ids)
+    check(alloc.share(ids[:1]), "host: share of a live unit")
+    alloc.free(ids[:1])
+    check(snapshot(ids) == base,
+          "host: share/unshare of a held unit moved a version")
+    alloc.free(ids)
+    check(all(b > a for b, a in zip(snapshot(ids), base)),
+          "host: the zero-transition must bump versions")
+    check(not alloc.share(ids[:1]), "host: sharing a free unit")
+    n_sb, _ = alloc.release(1)
+    view = alloc.view()
+    check(view.superblocks_released >= n_sb >= 0
+          and view.superblocks_mapped <= view.superblocks_total
+          and view.pages_per_superblock > 0, f"host: view {view}")
+    alloc.release(0)
+    check(alloc.view().superblocks_mapped >= 0, "host: release(0)")
+
+
+def host_layer_phase(card):
+    """Phase 10 (k): the host layer on the card's host (module docstring):
+    ``benchmarks/memory_release.py::run(quick=False)`` through the port's
+    ``repro_torch.core``, then the protocol exerciser over the host arena
+    and the device pool."""
+    import torch
+
+    from repro_torch.core import (PAGE_SIZE, HostAllocator, LRMalloc,
+                                  MichaelHashTable, OAVer, ReleaseStrategy)
+    from repro_torch.core.pagepool import DevicePagePool
+
+    n = HOST_KEYS
+    reset_launches()
+    rows = {}
+    for strategy in ReleaseStrategy:
+        t0 = time.perf_counter()
+        alloc = LRMalloc(num_superblocks=512, superblock_size=64 * 1024,
+                         strategy=strategy)
+        ar = alloc.arena
+        try:
+            rec = OAVer(alloc, limbo_threshold=64)
+            ht = MichaelHashTable(rec, int(n / 0.75))
+            ctx = rec.thread_ctx()
+            acq = ar.sb_acquired
+            check(all(ht.insert(k, ctx) for k in range(1, n + 1)),
+                  f"host {strategy.value}: an insert failed")
+            first = ar.sb_acquired - acq
+            peak = alloc.resident_bytes(), ar.resident_rss_pages() * PAGE_SIZE
+            check(all(ht.delete(k, ctx) for k in range(1, n + 1)),
+                  f"host {strategy.value}: a delete failed")
+            rec.flush(ctx)
+            alloc.flush_all_caches()
+            after = alloc.resident_bytes(), ar.resident_rss_pages() * PAGE_SIZE
+            check(not any(b.keys(ctx) for b in ht.buckets),
+                  f"host {strategy.value}: the table is not empty")
+            freed = rec.stats.snapshot()["nodes_freed"]
+            check(freed > 0.9 * n, f"host {strategy.value}: OAVer freed "
+                  f"{freed} of {n} nodes")
+            released = alloc.stats.persistent_released
+            # every superblock's range, released ones included, reads back
+            for base in range(0, ar.total, ar.sb_size):
+                alloc.read_u64(base + 16)
+                alloc.read_u64(base + ar.sb_size - 8)
+            reused = alloc.stats.superblocks_reused_mapped
+            acq = ar.sb_acquired
+            check(all(ht.insert(k, ctx) for k in range(1, n + 1)),
+                  f"host {strategy.value}: a second-fill insert failed")
+            second = ar.sb_acquired - acq
+            reused = alloc.stats.superblocks_reused_mapped - reused
+            check(released > 0 and second < first and reused > 0,
+                  f"host {strategy.value}: released {released}, second fill "
+                  f"acquired {second} superblocks against the first's "
+                  f"{first}, reused {reused} parked ranges")
+            if strategy is ReleaseStrategy.KEEP:
+                # KEEP retires superblocks (the counter above) but hands no
+                # frame back: no remap, and Pss stays (tests/
+                # test_allocator.py::test_keep_strategy_retains_frames)
+                check(ar.remap_syscalls == 0 and after[0] >= 0.9 * peak[0],
+                      f"host keep: remaps {ar.remap_syscalls}, Pss "
+                      f"{after[0]} after against {peak[0]} at peak")
+            rows[strategy.value] = dict(
+                peak_pss_kib=peak[0] >> 10, peak_rss_kib=peak[1] >> 10,
+                after_pss_kib=after[0] >> 10, after_rss_kib=after[1] >> 10,
+                shrank=after[0] < peak[0], superblocks_released=released,
+                first_fill_sb=first, second_fill_sb=second,
+                ranges_reused=reused, remap_syscalls=ar.remap_syscalls,
+                nodes_freed=freed, s=round(time.perf_counter() - t0, 2))
+        finally:
+            alloc.close()
+    host = HostAllocator(block_bytes=64, num_superblocks=16,
+                         superblock_size=64 * 1024)
+    try:
+        exercise_protocol(host)
+    finally:
+        host.close()
+    exercise_protocol(DevicePagePool(16, 4, ReleaseStrategy.MADVISE,
+                                     device="cuda"))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    check(not any(launches.values()), f"host: kernels launched {launches}")
+    log(f"host: (k) {n} keys into a MichaelHashTable under OAVer over "
+        f"LRMalloc(512 x 64 KiB), deleted, flushed, refilled, per "
+        f"ReleaseStrategy, on the host of {card}: every insert and delete "
+        f"true, the table empty, every superblock's range read back; "
+        f"resident KiB (Pss, Rss), superblocks, seconds: " + json.dumps(rows))
+    log(f"host: the Allocator protocol exerciser passed on HostAllocator "
+        f"(LRMalloc palloc) and on DevicePagePool on cuda; 0 kernel "
+        f"launches; RSS shrank after release under madvise: "
+        f"{rows['madvise']['shrank']}, under shared_remap: "
+        f"{rows['shared_remap']['shrank']}")
+    return rows
+
+
 SHARDED_STEPS = 3
 DRYRUN_CELLS = [("olmo-1b", "train_4k"), ("qwen2-72b", "decode_32k")]
 #: the collective bytes a device of :data:`DRYRUN_CELLS` moves, by kind, as
@@ -3322,6 +3908,9 @@ def main() -> int:
     models_phase(name, measured)
     train_phase(name, measured)
     sharded_train_phase(name, measured)
+    card = smi.stdout.strip().splitlines()[0]
+    pool_api_phase(card)
+    host_layer_phase(card)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)

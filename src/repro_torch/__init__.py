@@ -11,13 +11,22 @@ Module map (port -> JAX counterpart):
 =====================================  =======================================
 ``configs/`` (``base.py``, arch files)  ``repro/configs/`` (``input_specs``
                                         gives fake tensors)
-``core/vm.py``                          ``repro/core/vm.py`` (``ReleaseStrategy``
-                                        and ``superblock_floor`` only)
+``core/vm.py`` (copy)                   ``repro/core/vm.py`` (the mmap arena,
+                                        ``ReleaseStrategy``,
+                                        ``superblock_floor``)
+``core/sizeclass.py``, ``atomic.py``,   ``repro/core/`` same names (the host
+``lrmalloc.py``, ``reclaim.py``,        layer: LRMalloc with ``palloc``,
+``datastructures.py`` (copies)          ``HostAllocator``, the reclaimers,
+                                        the lock-free list and hash table)
 ``core/allocator.py`` (copy)            ``repro/core/allocator.py``
 ``core/reclaim_policy.py`` (copy)       ``repro/core/reclaim_policy.py``
 ``core/chaos.py``                       ``repro/core/chaos.py`` (snapshot's
                                         bump a device op)
-``core/pagepool.py``                    ``repro/core/pagepool.py``
+``core/pagepool.py``                    ``repro/core/pagepool.py`` (the pool
+                                        state and ``DevicePagePool``)
+``core/pagepool.py``'s public           ``repro/core/pagepool.py``'s 13
+functions (``alloc_pages_batch`` ...    public functions (each returns a
+``gather_kv``)                          new pool: nothing is donated)
 ``models/layers.py``                    ``repro/models/layers.py`` (norms,
                                         RoPE, QKV, MLPs, flash attention
                                         and its backward, decode
@@ -119,9 +128,6 @@ and the regions DTensor has no rule for run on each rank's shards
 stays the single-controller cut (one host thread, a shard a device).
 No counterpart: ``launch/mesh.py``'s ``_make_mesh`` (a jax-version shim);
 the dry run's ``--save-hlo`` has no HLO to save.
-
-Not yet ported: the host arena and lock-free reclaimers of ``core/``
-(``lrmalloc.py``, ``vm.py``'s arena, ``reclaim.py``, ``atomic.py``,
-``datastructures.py``, ``sizeclass.py``: framework-free, no device code;
-ROADMAP A).
+``tests/test_torch_api.py`` holds every public name of ``repro`` to a
+counterpart here, with the names that differ by design listed there.
 """

@@ -24,7 +24,15 @@ Two representation choices differ from the JAX pytree:
 
 Every ``_*_impl`` is functional (returns a new :class:`PagePool`) and makes
 no host sync: boolean-mask indexing, ``nonzero`` and ``.item()`` are absent,
-so the fused serving step can inline them and keep its one transfer.
+so the fused serving step can inline them and keep its one transfer.  The
+public functions (``alloc_pages_batch`` ... ``validate_read``, and the
+arena's ``kv_pages_init``/``append_kv``/``gather_kv``) are the reference's
+names, argument orders and return tuples over the same bodies.  The
+reference donates its pool to each jitted call; here each returns a new
+:class:`PagePool` and leaves its argument as it was.  Where the reference
+takes a dynamic scalar (``max_release``, ``keep_mapped``, ``n`` of
+``map_superblocks``) an int or a 0-dim tensor does; ``n`` of
+``alloc_pages`` and ``max_grow`` are static there and ints here.
 """
 
 from __future__ import annotations
@@ -41,6 +49,11 @@ from .vm import ReleaseStrategy
 __all__ = [
     "PagePool", "DevicePagePool", "ReleaseStrategy", "pool_init",
     "SB_FULL", "SB_PARTIAL", "SB_EMPTY", "SB_UNMAPPED", "superblock_states",
+    "alloc_pages", "alloc_pages_batch", "free_pages",
+    "share_pages", "unshare_pages",
+    "release_empty_superblocks", "map_superblocks",
+    "snapshot_versions", "validate_and_commit", "validate_read",
+    "kv_pages_init", "append_kv", "gather_kv",
 ]
 
 #: default superblock granularity (pages); ``pool_init`` clamps to the pool
@@ -123,6 +136,18 @@ def _drop_scatter_add(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     pad = torch.cat([dst, dst.new_zeros(1)])
     pad.index_add_(0, torch.where(ok, idx, n), val.to(dst.dtype))
     return pad[:n]
+
+
+def _ids(pool: PagePool, x) -> torch.Tensor:
+    """Page ids or needs (a tensor or a host sequence) on the pool's
+    device; a tensor already there is passed through untouched."""
+    return torch.as_tensor(x, device=pool.sb_free.device)
+
+
+def _scalar(pool: PagePool, x):
+    """A dynamic scalar: an int stays an int, a 0-dim tensor moves to the
+    pool's device (no copy when it is already there)."""
+    return x.to(pool.sb_free.device) if isinstance(x, torch.Tensor) else x
 
 
 def superblock_states(pool: PagePool) -> torch.Tensor:
@@ -223,11 +248,27 @@ def _alloc_pages_batch_impl(pool: PagePool, need: torch.Tensor, max_grow: int):
     return pool, grants, ok
 
 
+def alloc_pages_batch(pool: PagePool, need, max_grow: int = 1):
+    """Grant pages for a whole batch's growth in one pass.
+
+    ``need`` [B] — pages wanted per row (clipped to ``max_grow``).  Returns
+    (pool, grants [B, max_grow] int32 (−1 = not granted), ok [] bool).  On
+    exhaustion the satisfied prefix keeps its pages and ``ok`` is False;
+    PARTIAL superblocks serve first, UNMAPPED ones never.  No host sync."""
+    return _alloc_pages_batch_impl(pool, _ids(pool, need), max_grow)
+
+
 def _alloc_pages_impl(pool: PagePool, n: int):
     ok = _free_total(pool) >= n
     pool, pages = _segmented_pop_impl(
         pool, torch.where(ok, n, 0).to(torch.int64), n)
     return pool, pages, ok
+
+
+def alloc_pages(pool: PagePool, n: int):
+    """Pop ``n`` pages.  Returns (pool, pages [n] int32, ok [] bool); on
+    exhaustion nothing changes and pages are −1."""
+    return _alloc_pages_impl(pool, n)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +327,20 @@ def _unshare_pages_impl(pool: PagePool, pages: torch.Tensor) -> PagePool:
     )
 
 
+def unshare_pages(pool: PagePool, pages) -> PagePool:
+    """Drop one reference from each page (−1 entries ignored).  Pages whose
+    count hits zero re-enter their superblock's free list, their versions
+    bump, and the clock ticks once per batch with a zero-transition."""
+    return _unshare_pages_impl(pool, _ids(pool, pages))
+
+
+def free_pages(pool: PagePool, pages) -> PagePool:
+    """Release the caller's reference on each page (−1 entries ignored):
+    alias of :func:`unshare_pages` — a page granted by ``alloc`` holds one
+    reference, so freeing it is exactly the zero-transition decref."""
+    return _unshare_pages_impl(pool, _ids(pool, pages))
+
+
 def _share_pages_impl(pool: PagePool, pages: torch.Tensor):
     """Add one reference to each LIVE page (−1 ignored).  Returns (pool,
     ok [] bool); sharing a FREE page is refused and ok goes False."""
@@ -299,6 +354,13 @@ def _share_pages_impl(pool: PagePool, pages: torch.Tensor):
     inc = _drop_scatter_add(torch.zeros_like(pool.page_refcount), pidx,
                             valid & (rc > 0), (valid & (rc > 0)).to(torch.int32))
     return pool._replace(page_refcount=pool.page_refcount + inc), ok
+
+
+def share_pages(pool: PagePool, pages):
+    """Add one reference to each LIVE page (−1 entries ignored).  Returns
+    (pool, ok [] bool): ok is False if any entry named a free page, whose
+    increment alone is suppressed.  No version bump, no clock tick."""
+    return _share_pages_impl(pool, _ids(pool, pages))
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +412,24 @@ def _map_superblocks_impl(pool: PagePool, n):
     return pool._replace(sb_mapped=pool.sb_mapped | take), n_map, pages_map
 
 
+def release_empty_superblocks(pool: PagePool, max_release, keep_mapped):
+    """Take up to ``max_release`` EMPTY superblocks out of circulation while
+    keeping at least ``keep_mapped`` mapped.  Released pages' versions bump
+    (an in-flight reader of the range fails validation) and the clock ticks
+    once per non-empty batch; the KV arena stays allocated.  Returns (pool,
+    n_released [] int32, pages_released [] int32)."""
+    pool, n, pages = _release_empty_impl(pool, _scalar(pool, max_release),
+                                         _scalar(pool, keep_mapped))
+    return pool, n.to(torch.int32), pages
+
+
+def map_superblocks(pool: PagePool, n):
+    """Bring up to ``n`` released superblocks back into circulation (lowest
+    index first).  Returns (pool, n_mapped [] int32, pages_mapped [] int32)."""
+    pool, n_map, pages = _map_superblocks_impl(pool, _scalar(pool, n))
+    return pool, n_map.to(torch.int32), pages
+
+
 # ---------------------------------------------------------------------------
 # OA snapshot / validate
 
@@ -367,12 +447,99 @@ def _validate_and_commit_impl(pool: PagePool, pages: torch.Tensor,
     return torch.all(cur == snapshot, dim=-1), cur
 
 
+def snapshot_versions(pool: PagePool, pages) -> torch.Tensor:
+    """Versions of ``pages`` (−1 entries read as 0) — the reader's
+    LocalClock; int64 holding uint32 values."""
+    return _snapshot_impl(pool, _ids(pool, pages))
+
+
+def validate_and_commit(pool: PagePool, pages, snapshot):
+    """Per-row OA check and reader clock advance in one pass.  ``pages`` and
+    ``snapshot`` [..., n].  Returns (valid [...] bool — True iff no page of
+    the row was reclaimed since the snapshot — and the freshly read
+    versions, the next snapshot for rows that commit)."""
+    return _validate_and_commit_impl(pool, _ids(pool, pages),
+                                     _ids(pool, snapshot))
+
+
+def validate_read(pool: PagePool, pages, snapshot) -> torch.Tensor:
+    """OA check: a 0-dim bool tensor, True iff none of ``pages`` was
+    reclaimed since ``snapshot`` (a reclaim or a release bumps the version
+    before the page can be granted again — the warning-before-free order
+    of Alg. 1).  The caller decides when to read it."""
+    cur = _snapshot_impl(pool, _ids(pool, pages))
+    return torch.all(cur == _ids(pool, snapshot))
+
+
 def assign_pool(dst: PagePool, src: PagePool) -> PagePool:
     """Write ``src``'s state into ``dst``'s tensors in place (the port's
     counterpart of the reference's donated pool buffers); returns ``dst``."""
     for a, b in zip(dst, src):
         a.copy_(b)
     return dst
+
+
+# ---------------------------------------------------------------------------
+# KV page storage
+
+
+def kv_pages_init(num_pages: int, page_size: int, n_kv_heads: int,
+                  head_dim: int, dtype=torch.bfloat16, device=None):
+    """The persistent KV arena: allocated once, never released (palloc).
+    ``{"k", "v"}`` zeros of [num_pages, page_size, n_kv_heads, head_dim].
+    Superblock release is accounting on the pool only, so reads through
+    released ranges stay safe (they fail validation instead of faulting).
+    On ``cuda`` unless ``device=`` says otherwise; no card is an error."""
+    dev = resolve_device(device)
+    shape = (num_pages, page_size, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _drop_rows_put(arena: torch.Tensor, pages: torch.Tensor,
+                   slot: torch.Tensor, keep: torch.Tensor,
+                   new: torch.Tensor) -> torch.Tensor:
+    """``arena.at[pages, slot].set(new, mode="drop")``: a copy of the arena
+    padded by one sentinel page, which takes the entries with ``keep``
+    False and is then sliced away."""
+    P = arena.shape[0]
+    pad = torch.cat([arena, arena.new_zeros((1, *arena.shape[1:]))])
+    pad.index_put_((torch.where(keep, pages, P), slot), new.to(arena.dtype))
+    return pad[:P]
+
+
+def append_kv(kv, block_tables, lengths, k_new, v_new):
+    """Write one new token's K/V for each sequence; returns a new dict.
+
+    kv: page arrays; block_tables [B, max_pages] (−1 = unmapped); lengths
+    [B] current lengths (the new token goes at position ``lengths``);
+    k_new/v_new [B, n_kv_heads, head_dim].  A row whose page is −1, or
+    whose position lies past its table, is dropped.  Only pages pinned in a
+    live block table are written (hazard-pointer discipline)."""
+    P, page_size = kv["k"].shape[:2]
+    M = block_tables.shape[1]
+    lengths = lengths.to(torch.int64)
+    page_idx = lengths // page_size
+    slot = lengths % page_size
+    inside = (page_idx >= 0) & (page_idx < M)
+    pages = torch.gather(block_tables.to(torch.int64), 1,
+                         torch.clamp(page_idx, 0, M - 1)[:, None])[:, 0]
+    keep = inside & (pages >= 0) & (pages < P)
+    return {"k": _drop_rows_put(kv["k"], pages, slot, keep, k_new),
+            "v": _drop_rows_put(kv["v"], pages, slot, keep, v_new)}
+
+
+def gather_kv(kv, block_table, max_len: int):
+    """Optimistic gather of one sequence's KV as [max_len, Hkv, D] each.
+    Reads through freed pages are safe (the arena is persistent); −1 reads
+    page 0 and an id past the arena its last page, as the reference's
+    gather clamps."""
+    P, page_size = kv["k"].shape[:2]
+    n = max_len // page_size
+    pages = torch.clamp(block_table[:n].to(torch.int64), 0, P - 1)
+    k = kv["k"][pages].reshape(n * page_size, *kv["k"].shape[2:])
+    v = kv["v"][pages].reshape(n * page_size, *kv["v"].shape[2:])
+    return k, v
 
 
 # ---------------------------------------------------------------------------

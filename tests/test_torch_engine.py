@@ -195,7 +195,9 @@ def test_steady_step_makes_one_read_under_tensor_parallelism(weights,
 COPIES = ([f"configs/{p.name}" for p in
            sorted((REPO / "src/repro/configs").glob("*.py"))
            if p.name not in ("__init__.py", "base.py")]
-          + ["core/allocator.py", "core/reclaim_policy.py", "serving/stats.py",
+          + ["core/allocator.py", "core/reclaim_policy.py", "core/sizeclass.py",
+             "core/atomic.py", "core/vm.py", "core/lrmalloc.py",
+             "core/reclaim.py", "core/datastructures.py", "serving/stats.py",
              "serving/draft.py", "serving/overload.py", "serving/scheduler.py",
              "serving/traffic.py", "data/pipeline.py"])
 

@@ -63,7 +63,7 @@ def test_every_port_module_imports_with_jax_blocked():
 
 def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core.pagepool import DevicePagePool
+    from repro_torch.core.pagepool import DevicePagePool, kv_pages_init
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine, kv_storage_init
 
@@ -77,9 +77,12 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DevicePagePool(4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        kv_pages_init(4, 4, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         init_decoder_lm(cfg)
     # an explicit CPU request is honoured
     assert kv_storage_init(cfg, 4, 4, device="cpu")["k"].device.type == "cpu"
+    assert kv_pages_init(4, 4, 2, 8, device="cpu")["v"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "whisper-tiny",

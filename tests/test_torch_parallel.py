@@ -25,6 +25,7 @@ workloads' top-1/top-2 logit margins stay above ``MARGIN_TOL``
 """
 
 import dataclasses
+import importlib
 import os
 import pathlib
 import subprocess
@@ -486,7 +487,9 @@ def test_ticket_buffer_grows_to_every_request():
     """Concurrent get-or-grow keeps one buffer per (device, stream) at
     least as large as any thread asked for (an unlocked grow can replace a
     larger buffer with a smaller one)."""
-    from repro_torch.kernels import paged_attention as pa
+    # the package's ``paged_attention`` is the re-exported entry point, so
+    # the kernel's module is fetched by its full name
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
 
     key = (torch.device("cpu"), -12345)
     sizes = iter(range(2048, 2048 + 64 * 512, 512))
