@@ -24,6 +24,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -91,6 +92,59 @@ def build_all() -> dict[str, str]:
     memory report; empty when the library was already built)."""
     started = {n: _start(n) for n in SOURCES}
     return {n: _finish(n, *started[n]) for n in SOURCES}
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_BUILTIN = {"f": "f32", "d": "f64", "i": "i32", "j": "u32", "s": "i16",
+            "t": "u16", "h": "u8", "b": "bool"}
+
+
+def _label(mangled: str) -> str:
+    """A kernel template's mangled name as ``name<arg,...>``: builtin
+    types short (f32, i32, ...), named types by name (``__nv_bfloat16`` as
+    bf16), a type repeated (mangled as a substitution) as the one before
+    it, integer and bool arguments as their values."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    body, i, args = m.group(2), 0, []
+    while i < len(body):
+        if body[i] == "L":  # a literal: L<type><value>E
+            end = body.index("E", i)
+            args.append(body[i + 2:end])
+            i = end + 1
+        elif body[i].isdigit():  # a length-prefixed name
+            n = re.match(r"\d+", body[i:]).group()
+            name = body[i + len(n):i + len(n) + int(n)]
+            args.append("bf16" if name == "__nv_bfloat16" else name)
+            i += len(n) + int(n)
+        elif body[i] == "S":  # a substitution: S[seq]_
+            end = body.index("_", i)
+            args.append(args[-1] if args else body[i:end + 1])
+            i = end + 1
+        else:
+            args.append(_BUILTIN.get(body[i], body[i]))
+            i += 1
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_table(log: str) -> dict[str, tuple[int, int, int, int]]:
+    """Each kernel instantiation's (registers, stack-frame bytes,
+    spill-store bytes, spill-load bytes) from nvcc's ``-Xptxas -v``
+    output, keyed by :func:`_label` of its name."""
+    table, name, spills = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        if (m := _ENTRY.search(line)):
+            name, spills = _label(m.group(1)), (0, 0, 0)
+        elif (m := _SPILLS.search(line)):
+            spills = tuple(int(g) for g in m.groups())
+        elif (m := _REGS.search(line)) and name is not None:
+            table[name] = (int(m.group(1)), *spills)
+            name = None
+    return table
 
 
 def locked_cache(fn):

@@ -2,8 +2,12 @@
 
 Port of the TPU kernel ``repro.kernels.paged_attention.paged_attention_pallas``
 (source: ``kernels/csrc/paged_attention.cu``; its header note says what
-bounds it and what the design does about it: split-KV over a row's pages
-merged in the launch, a ``cp.async`` page ring, bf16 ``mma.sync`` tiles).
+bounds it and what the design does about it: split-KV over a row's pages,
+as many splits as :func:`row_splits` gives the row's page count, merged in
+the launch; a ``cp.async`` page ring whose page ids are fetched a stage
+ahead; bf16 ``mma.sync`` tiles whose warps split key slices, then output
+columns, so that a query row's arithmetic never depends on the head
+layout).
 Semantics are the Pallas kernel's: C queries per row over the row's pages
 with the in-chunk causal mask, −1 pages masked, float32 online softmax,
 zeros for rows of length 0.
@@ -43,14 +47,44 @@ from .ref import paged_attention_chunked_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the kernel's split count S: each (row, KV head) is cut into S contiguous
-#: shares of its pages, one block each, merged in the launch.  One constant
-#: for every launch (never derived from B, Hkv or the shard count, so each
-#: head's output is bitwise the same at every TP degree); chosen on the
-#: card by ``chip_smoke.py``'s split sweep (PERF.md §6)
-SPLITS = 2
-_MAX_SPLITS = 8
-_MAX_ROWS = 64  # query slots per block: C * G beyond it is cut into groups
+#: most splits of a row (the kernel's ``kMaxSplits``)
+MAX_SPLITS = 8
+#: K elements of one KV head a split reads at most (more when a row has
+#: more than ``MAX_SPLITS`` splits' worth): 32 KB of K and 32 KB of V in bf16
+SPLIT_ELEMENTS = 16384
+_MIN_GROUP = 16  # fewest query slots a block: sizes the ticket buffer
+
+
+def split_pages(head_dim: int, page_size: int) -> int:
+    """Pages per split of the kernel's split rule: ``SPLIT_ELEMENTS`` K
+    elements of one KV head (8 pages of 16 tokens at D=128, 4 at D=256)."""
+    return max(1, SPLIT_ELEMENTS // (head_dim * page_size))
+
+
+def row_splits(n_pages: int, head_dim: int, page_size: int,
+               splits: int | None = None) -> int:
+    """The kernel's split rule: how many blocks share a row of ``n_pages``
+    pages (``min(ceil(len / page), M)``), each taking the contiguous pages
+    ``[s*n//S, (s+1)*n//S)``: ``min(MAX_SPLITS, ceil(n / split_pages))``,
+    and 1 for a row of no pages.  It reads the row's page count, the head
+    dim and the page size and nothing else — never B, Hq, G, Hkv or the
+    shard count — so each query head's output is bitwise the same at
+    every TP degree and head layout.  The kernel computes it on the device
+    from each row's length; the wrapper calls it with the table width M to
+    size the scratch and the grid.  ``splits`` forces S = ``min(splits,
+    n_pages)`` (the split sweep and the split edge cases)."""
+    if n_pages <= 0:
+        return 1
+    if splits is not None:
+        return min(int(splits), n_pages)
+    return min(MAX_SPLITS, -(-n_pages // split_pages(head_dim, page_size)))
+
+
+def stage_tokens(head_dim: int, kv_dtype) -> int:
+    """Tokens of the kernel's ring stage (its online-softmax step): 64,
+    and 32 for a float32 arena at head dim 256 (shared memory).  It reads
+    only D and the arena's dtype, as the split rule does."""
+    return 32 if head_dim == 256 and kv_dtype == torch.float32 else 64
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -78,7 +112,7 @@ def _launcher():
     """The kernel's C entry point, typed once per process."""
     fn = load("paged_attention").paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     return fn
 
 
@@ -117,8 +151,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     the inputs' device's current stream and never reads a device value on
     the host.  ``pages_per_compute_block`` is accepted for the reference's
     signature and ignored: the kernel's stage size does not depend on it.
-    ``_splits`` overrides :data:`SPLITS` for the split sweep and its
-    tests only; the serving path never passes it.  ``_append`` is the
+    ``_splits`` forces :func:`row_splits`' split count for the split sweep
+    and its tests only; the serving path never passes it.  ``_append`` is the
     fused append's (k_new, v_new, write_ok), checked by
     :func:`paged_attention_append_cuda`, its only caller."""
     tensors = (q, k_pages, v_pages, block_tables, lengths, chunk_lens)
@@ -142,8 +176,13 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
            "block_tables must be [B, M]")
     _check(tuple(lengths.shape) == (B,) and tuple(chunk_lens.shape) == (B,),
            "lengths and chunk_lens must be [B]")
-    S = SPLITS if _splits is None else int(_splits)
-    _check(1 <= S <= _MAX_SPLITS, f"splits must be in 1..{_MAX_SPLITS}")
+    _check(_splits is None or 1 <= _splits <= MAX_SPLITS,
+           f"splits must be in 1..{MAX_SPLITS}")
+    M = block_tables.shape[1]
+    # the kernel's rule as (most splits, pages per split); forced: (S, 1)
+    rule = ((MAX_SPLITS, split_pages(D, page)) if _splits is None
+            else (int(_splits), 1))
+    S = row_splits(M, D, page, _splits)  # the widest row's: the grid's
     out = torch.empty_like(q)
     nq = C * (Hq // Hkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -153,7 +192,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
         part = torch.empty(B * Hkv * S * nq * (D + 2), dtype=torch.float32,
                            device=q.device)
         tickets = _ticket_buffer(q.device, stream,
-                                 B * Hkv * -(-nq // _MAX_ROWS))
+                                 B * Hkv * -(-nq // _MIN_GROUP))
     # the launch sizes itself for, and runs on, the CURRENT device: make
     # that the inputs' device (a shard on cuda:1 while cuda:0 is current)
     append = [None] * 3 if _append is None else [t.data_ptr()
@@ -164,7 +203,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
             block_tables.data_ptr(), lengths.data_ptr(), chunk_lens.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(), *append, B, C,
-            Hq, Hkv, D, page, block_tables.shape[1], P, S, _DTYPES[q.dtype],
+            Hq, Hkv, D, page, M, P, *rule, _DTYPES[q.dtype],
             _DTYPES[k_pages.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

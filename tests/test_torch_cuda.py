@@ -345,13 +345,34 @@ def test_cuda_mqa_head_dim_256(cuda, S, C, Hq, qd, kd):
     query heads, 128 query slots in two groups of 64): kernel 1 against
     its plain version on the split edge cases, and the fused append bitwise
     the two-launch pair, arena bit-exact against the plain version."""
+    _mqa_case(cuda, S, C, Hq, 256, qd, kd, seed=S * 5 + C + Hq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [None, 2])
+@pytest.mark.parametrize("C,Hq", [(1, 48), (16, 48), (1, 24), (16, 24)],
+                         ids=["decode_g48", "chunk_g48", "decode_g24",
+                              "chunk_g24"])
+@pytest.mark.parametrize("qd,kd", [("float32", "float32"),
+                                   ("bfloat16", "bfloat16"),
+                                   ("float32", "bfloat16")])
+def test_cuda_mqa_granite_head_dim_128(cuda, S, C, Hq, qd, kd):
+    """granite-20b's multi-query shape: 48 query heads on one KV head of
+    128 (24 a shard at TP=2; at C=16, 768 or 384 query slots in groups of
+    64), at the split rule's own count and forced to 2: kernel 1 against
+    its plain version on the split edge cases, the fused append bitwise the
+    two-launch pair, arena bit-exact against the plain version."""
+    _mqa_case(cuda, S, C, Hq, 128, qd, kd, seed=(S or 0) * 5 + C + Hq)
+
+
+def _mqa_case(cuda, S, C, Hq, D, qd, kd, seed):
     from repro_torch.kernels.kv_append import kv_append_cuda
     from repro_torch.kernels.paged_attention import (
         paged_attention_append_cuda, paged_attention_append_plain,
         paged_attention_cuda, paged_attention_plain)
     q, k, v, kn, vn, bt, ln, cl, ok = [
         torch.from_numpy(a).to(cuda) for a in
-        append_edge_case(S, 16, C, Hq, 1, 256, seed=S * 5 + C + Hq)]
+        append_edge_case(S or 2, 16, C, Hq, 1, D, seed=seed)]
     q = q.to(getattr(torch, qd))
     k, v, kn, vn = (a.to(getattr(torch, kd)) for a in (k, v, kn, vn))
     tol = 2e-2 if "bfloat16" in (qd, kd) else 1e-4
@@ -381,13 +402,27 @@ def test_cuda_sharded_attention_over_a_replicated_mqa_arena(cuda, C, dtype):
     copy (appending the same new K/V to it); the joined output equals one
     launch over 8 query heads bit for bit, and both copies equal that
     launch's arena."""
+    _replicated_case(cuda, C, 8, 256, dtype, seed=40 + C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sharded_attention_over_a_replicated_granite_arena(cuda, C,
+                                                                dtype):
+    """The same over granite-20b's one KV head of 128: 48 query heads, 24 a
+    shard (at C=16, 12 query groups of 64 against each shard's 6)."""
+    _replicated_case(cuda, C, 48, 128, dtype, seed=60 + C)
+
+
+def _replicated_case(cuda, C, Hq, D, dtype, seed):
     from repro_torch.kernels.paged_attention import (
         paged_attention_append_cuda, paged_attention_plain,
         paged_attention_sharded)
     from repro_torch.launch.mesh import make_serving_mesh
     q, k, v, kn, vn, bt, ln, cl, ok = [
         torch.from_numpy(a).to(cuda) for a in
-        append_edge_case(2, 16, C, 8, 1, 256, seed=40 + C)]
+        append_edge_case(2, 16, C, Hq, 1, D, seed=seed)]
     td = getattr(torch, dtype)
     q, k, v, kn, vn = (a.to(td) for a in (q, k, v, kn, vn))
     mesh = make_serving_mesh(2, [cuda, cuda])
@@ -538,11 +573,10 @@ def test_cuda_sharded_attention_on_kv_head_slabs(cuda, C, fused):
     kv_heads``): shards 0-1 on a one-head copy of KV head 0, 2-3 of head
     1, each launch on its 2 query heads (with the fused append into its
     own copy).  Every copy equals its head of one launch over the whole
-    arena; the joined output equals that launch's bit for bit where both
-    tile their query slots alike (C=1: one 16-row tile each; at C=16 the
-    kernel's warps split the keys by ceil(C*G/16) tiles, 2 against 4, and
-    sum in another order: within bf16's tolerance there), and the plain
-    version within bf16's tolerance."""
+    arena; the joined output equals that launch's bit for bit (the
+    kernel's key order reads no head count: at C=16 the shard tiles 32
+    query slots against the whole launch's 64, and sums alike), and the
+    plain version within bf16's tolerance."""
     from repro_torch.kernels.paged_attention import (
         paged_attention_append_cuda, paged_attention_cuda,
         paged_attention_plain, paged_attention_sharded)
@@ -570,12 +604,7 @@ def test_cuda_sharded_attention_on_kv_head_slabs(cuda, C, fused):
         outs = paged_attention_sharded(qs, *copies, bt, ln, cl, mesh=mesh,
                                        n_kv_heads=4)
     assert paged_attention_sharded.launches - before == 4
-    got = torch.cat(outs, dim=2)
-    if -(-C * 2 // 16) == -(-C * 4 // 16):
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                   rtol=0)
+    assert torch.equal(torch.cat(outs, dim=2), want)
     for c, f in zip(copies, full):
         for s, h in enumerate(heads):
             assert torch.equal(c[s], f[:, :, h:h + 1])

@@ -6,8 +6,10 @@ interpret mode, as ``tests/test_kernels.py`` runs them.  Tolerance: 2e-5
 abs/rel in float32 (summation order only); the KV append is bit-exact.
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py``; the CUDA attention kernel's split-and-merge
-algorithm is emulated here in plain torch (``_split_emulation``) and held
-to the same oracles.  The fused append (``paged_attention(...,
+algorithm — its split rule (``row_splits``) and stage size
+(``stage_tokens``) — is emulated here in plain torch (``_split_emulation``)
+and held to the same oracles, over a KV-head arena and over a one-head
+(multi-query) arena.  The fused append (``paged_attention(...,
 append=...)``) is held to the JAX serving step's scatter followed by the
 Pallas kernel: the arena exactly, the output to 1e-5 in float32.
 """
@@ -27,6 +29,8 @@ from repro.kernels.ref import (paged_attention_chunked_ref,
                                paged_attention_ref)
 from repro_torch.kernels import ops
 from repro_torch.kernels.kv_append import kv_append_plain
+from repro_torch.kernels.paged_attention import (MAX_SPLITS, row_splits,
+                                                 split_pages, stage_tokens)
 from repro_torch.kernels.ref import speculative_accept_ref
 from split_cases import append_case, split_edge_case
 
@@ -237,25 +241,32 @@ def test_speculative_accept_matches_reference():
 
 # ---------------------------------------------------------------------------
 # the CUDA kernel's split-KV algorithm (kernels/csrc/paged_attention.cu),
-# emulated in plain torch: per-row page partition from lengths and S,
-# per-split online softmax over 16-token tiles with the kernel's guards,
-# the merge of the S partials in split order
+# emulated in plain torch: per-row page partition by the port's split rule,
+# per-split online softmax over stages of the kernel's stage size with the
+# kernel's guards, the merge of the partials in split order
 
 
-def _split_emulation(q, k, v, bt, ln, cl, S, tile=16):
+def _split_emulation(q, k, v, bt, ln, cl, splits=None,
+                     kv_dtype=torch.bfloat16):
     """[B, C, Hq, D] float32, computed one (row, KV head) at a time as the
-    kernel's blocks do: split s of a row takes pages [s*n//S, (s+1)*n//S)
-    of its n = min(ceil(len/page), M) pages; an empty split gives m = −inf,
-    l = 0 and is skipped by the merge."""
+    kernel's blocks do: a row of n = min(ceil(len/page), M) pages has S =
+    ``row_splits(n, D, page, splits)`` splits, split s taking pages
+    [s*n//S, (s+1)*n//S), each walked in stages of ``stage_tokens(D,
+    kv_dtype)`` tokens; a split of -1 pages gives m = −inf, l = 0 and is
+    skipped by the merge.  Products are elementwise sums, so a query row's
+    bits never depend on how many rows share the call (a matmul's blocking
+    may)."""
     q, k, v = (torch.as_tensor(a, dtype=torch.float32) for a in (q, k, v))
     bt = torch.as_tensor(bt).long()
     B, C, Hq, D = q.shape
     P, page, Hkv, _ = k.shape
     G, M = Hq // Hkv, bt.shape[1]
+    tile = stage_tokens(D, kv_dtype)
     out = torch.zeros(B, C, Hq, D)
     for b in range(B):
         L, CL = int(ln[b]), int(cl[b])
         n = min(-(-L // page), M) if L > 0 else 0
+        S = row_splits(n, D, page, splits)
         lim = torch.tensor([min(L - CL + c + 1, L) for c in range(C)]
                            ).repeat_interleave(G)  # slot qi = c * G + g
         for h in range(Hkv):
@@ -274,14 +285,16 @@ def _split_emulation(q, k, v, bt, ln, cl, S, tile=16):
                     kt = k[pid, ts % page, h]
                     vt = torch.where(mapped[:, None], v[pid, ts % page, h], 0.)
                     live = mapped[None, :] & (ts[None, :] < lim[:, None])
-                    sc = torch.where(live, qh @ kt.T / math.sqrt(D), -math.inf)
+                    dots = (qh[:, None, :] * kt[None]).sum(-1)
+                    sc = torch.where(live, dots / math.sqrt(D), -math.inf)
                     m_new = torch.maximum(m, sc.amax(1))
                     m_safe = torch.where(torch.isfinite(m_new), m_new, 0.)
                     alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
                                         0.)
                     p = torch.where(live, torch.exp(sc - m_safe[:, None]), 0.)
                     l = l * alpha + p.sum(1)
-                    acc = acc * alpha[:, None] + p @ vt
+                    acc = acc * alpha[:, None] + (p[:, :, None] * vt[None]
+                                                  ).sum(1)
                     m = m_new
                 parts.append((m, l, acc))
             m_tot = torch.stack([m for m, _, _ in parts]).amax(0)
@@ -299,15 +312,16 @@ def _split_emulation(q, k, v, bt, ln, cl, S, tile=16):
 
 
 @functools.cache
-def _edge_refs(S, C):
-    """An edge case (page 4, GQA 4:2, D 16) with the JAX package's chunked
-    oracle and its Pallas kernel in interpret mode on it."""
-    case = split_edge_case(S, 4, C, 4, 2, 16, seed=S * 10 + C)
+def _edge_refs(S, C, Hq=4, Hkv=2, D=16, B=8):
+    """An edge case (page 4; GQA 4:2 at D 16 unless given) with the JAX
+    package's chunked oracle and its Pallas kernel in interpret mode on
+    it, computed once per case."""
+    case = split_edge_case(S, 4, C, Hq, Hkv, D, seed=S * 10 + C, B=B)
     J = jnp.asarray
     q, k, v, bt, ln, cl = map(J, case)
     ref = paged_attention_chunked_ref(q, k, v, bt, ln, cl)
     pallas = paged_attention_pallas(q, k, v, bt, ln, page_size=4,
-                                    n_kv_heads=2, interpret=True,
+                                    n_kv_heads=Hkv, interpret=True,
                                     chunk_lens=cl)
     return case, np.asarray(ref), np.asarray(pallas)
 
@@ -326,11 +340,36 @@ def test_split_emulation_matches_plain_ref_and_pallas(S, C):
     np.testing.assert_allclose(mine, pallas, **TOL)
 
 
+@pytest.mark.parametrize("S", [1, 2, 4, 8, None], ids=["S1", "S2", "S4", "S8",
+                                                       "rule"])
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("Hq,D,kv_dtype", [(8, 256, torch.bfloat16),
+                                           (8, 256, torch.float32),
+                                           (12, 128, torch.bfloat16)],
+                         ids=["d256_g8", "d256_g8_f32", "d128_g12"])
+def test_split_rule_over_a_one_head_arena(S, C, Hq, D, kv_dtype):
+    """Multi-query shapes, one KV head, 7 rows of page 4: paligemma's head
+    dim 256 with its 8 query heads, and head dim 128 with 12 query heads
+    (a reduced stand-in for granite-20b's 48).  The split rule's partition
+    (forced to S splits, and the rule's own: 16 pages a split at D 256,
+    32 at D 128) walked in the kernel's stages (64 tokens; 32 for a float32
+    arena at D 256) equals the plain version, the JAX chunked oracle and
+    the interpret-mode Pallas kernel."""
+    case, ref, pallas = _edge_refs(S or 8, C, Hq, 1, D, B=7)
+    mine = _split_emulation(*case, S, kv_dtype).numpy()
+    assert np.all(mine[4] == 0)  # the row of length 0
+    np.testing.assert_allclose(mine, _port(*case), **TOL)
+    np.testing.assert_allclose(mine, ref, **TOL)
+    np.testing.assert_allclose(mine, pallas, **TOL)
+
+
 @pytest.mark.parametrize("S", [1, 2, 4, 8])
 def test_split_emulation_heads_do_not_depend_on_hkv_or_shards(S):
     """A head's output is bitwise the same from the whole arena (Hkv=4),
     from 2 shards of 2 heads and from 4 shards of 1: the partition reads
-    only the row's page count and S."""
+    only the row's page count and S.  Over a one-head arena (multi-query)
+    the shards are copies, each on its slab of the 8 query heads (G = 8,
+    4, 2): each head's output is bitwise that of the whole launch too."""
     q, k, v, bt, ln, cl = split_edge_case(S, 4, 8, 8, 4, 16, seed=S)
     full = _split_emulation(q, k, v, bt, ln, cl, S)
     for tp in (2, 4):
@@ -340,3 +379,33 @@ def test_split_emulation_heads_do_not_depend_on_hkv_or_shards(S):
                                  v[:, :, i * hk:(i + 1) * hk], bt, ln, cl, S)
                 for i in range(tp)]
         assert torch.equal(torch.cat(outs, dim=2), full)
+    q, k, v, bt, ln, cl = split_edge_case(S, 4, 8, 8, 1, 16, seed=S + 50)
+    full = _split_emulation(q, k, v, bt, ln, cl, S)
+    for tp in (2, 4):
+        hq = 8 // tp
+        outs = [_split_emulation(q[:, :, i * hq:(i + 1) * hq], k.copy(),
+                                 v.copy(), bt, ln, cl, S) for i in range(tp)]
+        assert torch.equal(torch.cat(outs, dim=2), full)
+
+
+@pytest.mark.parametrize("D,per", [(16, 64), (32, 32), (64, 16), (128, 8),
+                                   (256, 4)])
+def test_row_splits_read_only_pages_head_dim_and_page_size(D, per):
+    """The split rule at 16-token pages: ``split_pages`` pages a split (32
+    KB of bf16 K a KV head), at most ``MAX_SPLITS``, one split for a row of
+    no pages; a forced count is capped by the row's pages.  paligemma-3b's
+    rows of 80-272 tokens (5-17 pages) get 2-5 splits at D 256, olmo-1b's
+    1-3 at D 128."""
+    assert split_pages(D, 16) == per
+    for n in range(0, 600):
+        S = row_splits(n, D, 16)
+        assert S == (1 if n == 0 else min(MAX_SPLITS, -(-n // per)))
+        assert all(n == 0 or s * n // S < (s + 1) * n // S for s in range(S))
+        for forced in (1, 2, 4, 8):
+            assert row_splits(n, D, 16, forced) == (min(forced, n) if n else 1)
+    if D == 256:
+        assert [row_splits(n, D, 16) for n in (5, 8, 9, 17)] == [2, 2, 3, 5]
+    if D == 128:
+        assert [row_splits(n, D, 16) for n in (5, 8, 9, 17)] == [1, 1, 2, 3]
+    assert stage_tokens(D, torch.bfloat16) == 64
+    assert stage_tokens(D, torch.float32) == (32 if D == 256 else 64)
