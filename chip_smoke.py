@@ -61,11 +61,21 @@ run with a nonzero exit and no result line.
    the arena replicated at TP=2) served through ``PagedServingEngine``,
    each at TP=1 and at ``tensor_parallel=TP`` with every shard on this
    card (``devices=["cuda:0"] * TP``), with seeded float32 weights and then
-   the same weights in bf16 (the main path).  In each run every request
-   must finish, the clock mirror must equal the pool's clock, the fused
-   launch must run once per layer per shard per step and
-   ``kv_append_cuda`` never, and a steady step must make exactly one
-   device->host transfer; over a replicated arena the shards' copies must
+   the same weights in bf16 (the main path).  Each cell runs twice: with
+   the runner's eager step, then through its captured CUDA graphs (the
+   card's default, one graph a key; ``serving/runner.py``), and the graph
+   run's tokens, block tables, snapshots, lengths, last tokens, pool
+   (clock included) and arena must be bitwise the eager run's.  In each
+   run every request must finish, the clock mirror must equal the pool's
+   clock, the fused launch must run once per layer per shard per step
+   (a replay adds what its capture recorded, a capture's dry step what
+   an eager step launches; the graphs' recorded launches times their
+   replays, and torch.profiler's count of the kernel in two steady
+   steps, must give the same) and ``kv_append_cuda`` never, and a steady
+   step must make exactly one device->host transfer; each run prints
+   its wall and steady-step ms, device ms and ops a step and busy share,
+   the graph run its captures' ms and the graph pool's bytes; over a
+   replicated arena the shards' copies must
    be bitwise equal after the run, each the whole arena's bytes.  Across
    runs: in float32, TP=2 must equal TP=1 in tokens, and in the K/V of
    every position written within 2e-2 + 2e-2|x| (olmo-1b and paligemma;
@@ -84,12 +94,13 @@ run with a nonzero exit and no result line.
    layer run once on the lead) in bf16, each held as above and by its
    expert bytes per shard (half the whole set under ``ep``); float32
    ``ep``'s tokens must equal float32 ``tp``'s, its K/V held by the same
-   routing check.  Roofline lines: one steady step of each of the
+   routing check (routes are recorded in the eager runs: a replay runs
+   no Python).  Roofline lines: one steady step of each of the
    olmo-1b bf16 TP=1 run and the olmoe bf16 ``tp`` and ``ep`` runs goes
-   through ``launch/op_analysis.py`` (the fused launches' work added by
-   ``attention_work``'s rules); its FLOPs and bytes, the H100 bound they
-   give and the mean wall time of the other steady steps as a share of it
-   are printed.
+   eagerly through ``launch/op_analysis.py`` (the fused launches' work
+   added by ``attention_work``'s rules); its FLOPs and bytes, the H100
+   bound they give and the graph run's mean steady-step wall time as a
+   share of it are printed.
 5. Fleet: full-width olmo-1b (the engine phase's configuration, 16
    requests unless stated) served by ``DataParallelEngine`` with both
    replicas on this card.  Each path has its launch counts set to 0 just
@@ -98,7 +109,9 @@ run with a nonzero exit and no result line.
    in ``step()`` mode every step's launches per replica and exactly one
    read per replica in a steady step (sync debug mode); then threaded
    ``run()`` (the same tokens) and one engine on the same requests, both
-   timed; the clock mirror per replica.  (b) Failover: a warmed fleet with
+   timed, and both again with the eager step (the same tokens); the clock
+   mirror per replica.  Every replica serves through its step graphs, a
+   threaded round's all captured before its driver threads start.  (b) Failover: a warmed fleet with
    ``auto_revive`` whose replica 0 is killed mid-decode; in float32 the
    stitched tokens must equal one engine's, with one failure, one revival
    and every request of the killed replica migrated; in bf16 the equal
@@ -234,10 +247,11 @@ for kernel 3 — paligemma's are in its own log lines; kernel 1 counts
 its launches with and without the append, kernel 2 is off the serving path
 and counts 0); the last line is ``{"ok": true, "device": {...}}``.  Exits
 nonzero without CUDA.  ``--profile`` adds a torch.profiler breakdown of
-steady full-width decode steps (olmo-1b at TP=1 and TP=2, olmoe-1b-7b at
-TP=1 with its expert layer alone at the step's shapes, paligemma-3b at
-TP=2) after the fleet phase, and the device time of the fleet's drain
-beside the fleet phase's wall times.
+steady full-width decode steps, eager and then replaying the captured
+step (olmo-1b at TP=1 and TP=2, olmoe-1b-7b at TP=1 with its expert
+layer alone at the step's shapes, paligemma-3b at TP=2) after the fleet
+phase, and the device time of the fleet's drain beside the fleet phase's
+wall times.
 """
 
 from __future__ import annotations
@@ -1522,23 +1536,190 @@ def roofline_line(tag, what, cost, dtype, measured_ms, name):
         f"it, on {name}")
 
 
+#: the steady steps (0-based) of an engine run traced by torch.profiler for
+#: its device time; the roofline's op count runs at steady step 2
+PROFILED_STEADY = (4, 5)
+
+
+def engine_state(eng):
+    """Everything a step writes, cloned on the card: the block tables,
+    snapshots, lengths and last tokens, the pool's tensors (its clock
+    among them) and every shard's arena."""
+    from repro_torch.core.pagepool import PagePool
+
+    kvm = eng.kv_manager
+    out = {"block_tables": kvm._bt, "snapshot": kvm._snap,
+           "lengths": kvm._len, "last_tok": kvm._last}
+    out.update({f"pool.{f}": t for f, t in zip(PagePool._fields, eng.pool)})
+    kvs = eng.kv if isinstance(eng.kv, list) else [eng.kv]
+    out.update({f"arena{s}.{n}": kv[n] for s, kv in enumerate(kvs)
+                for n in ("k", "v")})
+    return {k: v.clone() for k, v in out.items()}
+
+
+def first_state_difference(a, b):
+    """(name, index, a's value, b's value) of the first element where two
+    :func:`engine_state` snapshots differ, or None where they are equal."""
+    import torch
+
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            at = tuple((a[k] != b[k]).nonzero()[0].tolist())
+            return k, at, a[k][at].item(), b[k][at].item()
+    return None
+
+
+def graph_pool_bytes(runner):
+    """Bytes of the device segments in the memory pool ``runner``'s step
+    graphs share (0 before its first capture)."""
+    import torch
+
+    if runner._mempool is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) ==
+               tuple(runner._mempool))
+
+
+def serve(eng, tag, per_step, *, rows=None, roofline=None):
+    """Drain ``eng``'s requests step by step (admit, step, maintain), with
+    the phase's gates: every step adds ``per_step`` (wrapper -> launches)
+    once, and once more for each capture it ran (a capture's dry step
+    launches what an eager step does); a steady step (nothing queued,
+    every row decoding, each two or more tokens from its end) makes
+    exactly one device->host transfer (sync debug mode).  Steady steps
+    :data:`PROFILED_STEADY` run under torch.profiler: device ms and ops a
+    step, and the fused launch's count a step, which must equal
+    ``per_step``'s.  ``rows``: called with the requests a step before
+    their last one, untimed (the K/V reads).  ``roofline``: a
+    :func:`step_attention_work` callable; steady step 2 then runs under
+    ``op_analysis.analyze``.  Returns a dict: steps, steady, transfers,
+    wall s (without ``rows``), mean steady wall ms (the unprofiled,
+    uncounted steady steps), device ms and ops a step, and the cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.serving.runner import ModelRunner
+
+    sched = eng.scheduler
+    steps = steady = transfers = 0
+    walls, untimed, cost, prof, device = [], 0.0, None, None, None
+    t0 = time.perf_counter()
+    while True:
+        sched.admit()
+        if not sched.running and not sched.queue:
+            break
+        last = [r for r in sched.running
+                if len(r.generated) == r.max_new_tokens - 1]
+        if rows is not None and last:
+            t1 = time.perf_counter()
+            rows(last)
+            torch.cuda.synchronize()
+            untimed += time.perf_counter() - t1
+        before = {fn: fn.launches for fn in per_step}
+        dry = ModelRunner.dry_steps
+        is_steady = (not sched.queue and all(
+            r.committed >= len(r.prompt)
+            and len(r.generated) + 2 < r.max_new_tokens
+            for r in sched.running))
+        if is_steady:
+            count = roofline is not None and steady == 2
+            profiled = steady in PROFILED_STEADY
+            if count:
+                work = roofline()
+            if profiled and prof is None:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            t1 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    if count:  # the step's own read ends it
+                        cost = analyze(eng.step, extra=work)
+                    else:
+                        eng.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            if not (count or profiled):
+                walls.append(time.perf_counter() - t1)
+            syncs = [w for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            check(len(syncs) == 1, f"{tag}: steady step {steps} made "
+                  f"{len(syncs)} device->host transfers: "
+                  f"{[str(w.message)[:80] for w in syncs]}")
+            steady += 1
+            transfers += len(syncs)
+            if prof is not None and steady == PROFILED_STEADY[-1] + 1:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                device = profiled_step(prof, len(PROFILED_STEADY))
+                prof = None
+        else:
+            eng.step()
+        sched.maintain()
+        steps += 1
+        times = 1 + ModelRunner.dry_steps - dry
+        got = {fn.__name__: fn.launches - before[fn] for fn in per_step}
+        check(all(fn.launches - before[fn] == n * times
+                  for fn, n in per_step.items()),
+              f"{tag} step {steps}: kernel launches {got}, want "
+              f"{ {fn.__name__: n * times for fn, n in per_step.items()} }"
+              f" (the step and {times - 1} capture dry steps)")
+    torch.cuda.synchronize()
+    check(steady >= PROFILED_STEADY[-1] + 2 and device is not None,
+          f"{tag}: only {steady} steady steps were checked")
+    fused = next(n for fn, n in per_step.items()
+                 if fn.__name__ == "paged_attention_append_cuda")
+    check(device["fused"] == fused, f"{tag}: the profiler counts "
+          f"{device['fused']} fused launches a steady step, want {fused}")
+    return {"steps": steps, "steady": steady, "transfers": transfers,
+            "wall": time.perf_counter() - t0 - untimed,
+            "steady_ms": 1e3 * sum(walls) / len(walls),
+            "device_ms": device["ms"], "ops": device["ops"], "cost": cost}
+
+
+def profiled_step(prof, steps):
+    """Device ms, device ops and fused-kernel launches a step from a
+    torch.profiler trace of ``steps`` steps (kernels and copies)."""
+    ms = ops = fused = 0.0
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0 and str(ev.device_type).endswith("CUDA"):
+            ms += dev / 1e3
+            ops += ev.count
+            if "paged_attention_kernel" in ev.key:
+                fused += ev.count
+    return {"ms": ms / steps, "ops": ops / steps, "fused": fused / steps}
+
+
 def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
                  record=(), routes=False, moe_shard=None, roofline=False):
-    """Serve the 8 requests on full-width ``arch`` with ``dtype`` weights;
-    ``tp`` > 1 serves them on ``tp`` shards of this card (over replicated
-    arena copies where ``tp`` does not divide the KV heads: then the copies
-    must be bitwise equal after the run, each the whole arena's bytes).
-    ``moe_shard`` sets ``REPRO_MOE_SHARD`` while the engine cuts its
-    weights (then each shard's expert bytes are held: half the whole set
-    under ``ep``, all of it under ``data`` and ``none``).  ``record`` names
-    the ``results`` rows whose ``launches`` take this run's counts.  With
-    ``roofline`` one steady step runs under ``op_analysis.analyze`` (the
-    fused launches' work added from :func:`step_attention_work`) and its
-    bound is logged beside the other steady steps' mean wall time.
-    Returns (generated tokens, per request the K/V of every position it
-    wrote — read just before its last step —, the phase's tag, prompt
-    lengths, and with ``routes`` the MoE routing of every position:
-    :func:`routes_by_position`)."""
+    """Serve the 8 requests on full-width ``arch`` with ``dtype`` weights,
+    twice: once with the runner's eager step, then through its captured
+    CUDA graphs (the card's default, the main path); ``tp`` > 1 serves
+    them on ``tp`` shards of this card (over replicated arena copies
+    where ``tp`` does not divide the KV heads: then the copies must be
+    bitwise equal after the run, each the whole arena's bytes).  Both runs
+    are held by :func:`serve`'s gates, and the graph run's tokens, block
+    tables, snapshots, lengths, last tokens, pool (clock included) and
+    arena bitwise against the eager run's (the first difference printed
+    if any).  ``moe_shard`` sets ``REPRO_MOE_SHARD`` while the engines cut
+    their weights (then each shard's expert bytes are held: half the
+    whole set under ``ep``, all of it under ``data`` and ``none``).
+    ``record`` names the ``results`` rows whose ``launches`` take the
+    graph run's counts.  With ``roofline`` one steady step of the eager
+    run goes through ``op_analysis.analyze`` (a dispatch mode sees no
+    graph replay; the fused launches' work added from
+    :func:`step_attention_work`) and its bound is logged beside the graph
+    run's mean steady wall time.  With ``routes`` the eager run records
+    the MoE routing of every position (:func:`route_trace`: a Python
+    patch, which a replay does not run).  Returns (generated tokens, per
+    request the K/V of every position it wrote — read just before its
+    last step —, the phase's tag, prompt lengths, and with ``routes`` the
+    MoE routing of every position: :func:`routes_by_position`)."""
     import gc
 
     import numpy as np
@@ -1549,7 +1730,6 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     from repro_torch.kernels.paged_attention import (
         paged_attention_append_cuda, paged_attention_cuda,
         paged_attention_sharded)
-    from repro_torch.launch.op_analysis import analyze
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import PagedServingEngine
 
@@ -1566,13 +1746,52 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
                              device="cuda")
     where = (dict(device="cuda") if tp == 1 else
              dict(tensor_parallel=tp, devices=["cuda:0"] * tp))
-    if moe_shard is not None:  # read where the engine cuts the weights
-        os.environ["REPRO_MOE_SHARD"] = moe_shard
-    try:
-        eng = PagedServingEngine(cfg, params, num_pages=512, page_size=16,
-                                 max_batch=8, prefill_chunk=16, **where)
-    finally:
-        os.environ.pop("REPRO_MOE_SHARD", None)
+
+    def build():
+        if moe_shard is not None:  # read where the engine cuts the weights
+            os.environ["REPRO_MOE_SHARD"] = moe_shard
+        try:
+            return PagedServingEngine(cfg, params, num_pages=512,
+                                      page_size=16, max_batch=8,
+                                      prefill_chunk=16, **where)
+        finally:
+            os.environ.pop("REPRO_MOE_SHARD", None)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(64, 257, 8)]
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}"
+           if cfg.moe else "")
+    # every kernel wrapper's count, and what one step must add to it: the
+    # fused launch once per layer and shard (counted by kernel 1's wrapper
+    # too, which it launches through), the standalone append never
+    per_step = {paged_attention_cuda: tp * cfg.n_layers,
+                paged_attention_append_cuda: tp * cfg.n_layers,
+                kv_append_cuda: 0,
+                paged_attention_sharded: (tp if tp > 1 else 0) * cfg.n_layers}
+
+    # -- the eager step: the reference state, routes, the op count --------
+    eng = build()
+    eng.runner.graphs = False
+    reqs = [eng.submit(p, 32) for p in prompts]
+    records = []
+    index = {id(r): i for i, r in enumerate(reqs)}
+    trace = (route_trace(records, lambda: {r.slot: index[id(r)]
+                                           for r in eng.scheduler.running})
+             if routes else contextlib.nullcontext())
+    with trace:
+        eager = serve(eng, f"{tag} eager", per_step, roofline=(
+            (lambda: step_attention_work(cfg, eng, tp, dtype))
+            if roofline else None))
+    eager_tokens = [list(r.generated) for r in reqs]
+    eager_state = engine_state(eng)
+    del eng, reqs
+    gc.collect()
+
+    # -- the main path: the captured step ----------------------------------
+    eng = build()
+    check(eng.runner.graphs, f"{tag}: the engine does not serve through "
+          f"CUDA graphs on the card")
     if moe_shard is not None:
         whole = expert_bytes(params.tree() if hasattr(params, "tree")
                              else params)
@@ -1584,98 +1803,33 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
         log(f"{tag}: {per[0] / 2**30:.3f} GiB of experts on each of {tp} "
             f"shards, the whole set {whole / 2**30:.3f} GiB")
     del params  # under tp the engine holds its own shard copies
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(64, 257, 8)]
     reqs = [eng.submit(p, 32) for p in prompts]
     torch.cuda.synchronize()
-    moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}"
-           if cfg.moe else "")
     log(f"{tag}: {arch} full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
         f"{cfg.n_kv_heads} KV heads, vocab {cfg.vocab_padded}{moe}), set-up "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-
-    sched = eng.scheduler
-    # every kernel wrapper's count, and what one step must add to it: the
-    # fused launch once per layer and shard (counted by kernel 1's wrapper
-    # too, which it launches through), the standalone append never
-    counters = {paged_attention_cuda: tp * cfg.n_layers,
-                paged_attention_append_cuda: tp * cfg.n_layers,
-                kv_append_cuda: 0,
-                paged_attention_sharded: (tp if tp > 1 else 0) * cfg.n_layers}
-    for fn in counters:
-        fn.launches = 0
-    steps = steady = transfers = 0
-    steady_walls, cost = [], None
     kv_rows = {}
-    untimed = 0.0
-    records = []
-    index = {id(r): i for i, r in enumerate(reqs)}
-    trace = (route_trace(records, lambda: {r.slot: index[id(r)]
-                                           for r in sched.running})
-             if routes else contextlib.nullcontext())
-    t0 = time.perf_counter()
-    with trace:
-        while True:
-            sched.admit()
-            if not sched.running and not sched.queue:
-                break
-            last = [r for r in sched.running if id(r) not in kv_rows
-                    and len(r.generated) == r.max_new_tokens - 1]
-            if last:  # reads between steps, before the rows are freed
-                t1 = time.perf_counter()
-                kv_rows.update((id(r), row_kv(eng, r)) for r in last)
-                torch.cuda.synchronize()
-                untimed += time.perf_counter() - t1
-            before = {fn: fn.launches for fn in counters}
-            is_steady = (not sched.queue and all(
-                r.committed >= len(r.prompt)
-                and len(r.generated) + 2 < r.max_new_tokens
-                for r in sched.running))
-            if is_steady:
-                count = roofline and steady == 2
-                if count:
-                    work = step_attention_work(cfg, eng, tp, dtype)
-                t1 = time.perf_counter()
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        if count:  # the step's own read ends it
-                            cost = analyze(eng.step, extra=work)
-                        else:
-                            eng.step()
-                    finally:
-                        torch.cuda.set_sync_debug_mode("default")
-                if not count:
-                    steady_walls.append(time.perf_counter() - t1)
-                syncs = [w for w in caught
-                         if "called a synchronizing" in str(w.message)]
-                check(len(syncs) == 1, f"{tag}: steady step {steps} made "
-                      f"{len(syncs)} device->host transfers: "
-                      f"{[str(w.message)[:80] for w in syncs]}")
-                steady += 1
-                transfers += len(syncs)
-            else:
-                eng.step()
-            sched.maintain()
-            steps += 1
-            got = {fn.__name__: fn.launches - before[fn] for fn in counters}
-            check(all(fn.launches - before[fn] == n
-                      for fn, n in counters.items()),
-                  f"{tag} step {steps}: kernel launches {got}, want "
-                  f"{ {fn.__name__: n for fn, n in counters.items()} }")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0 - untimed
-    launches = {fn.__name__: fn.launches for fn in counters}
-    rows = {"paged_attention": paged_attention_cuda,
-            "kv_append": kv_append_cuda,
-            "paged_attention_append": paged_attention_append_cuda,
-            "paged_attention_sharded": paged_attention_sharded}
+    for fn in per_step:
+        fn.launches = 0
+    graph = serve(eng, tag, per_step, rows=lambda last: kv_rows.update(
+        (id(r), row_kv(eng, r)) for r in last if id(r) not in kv_rows))
+    launches = {fn.__name__: fn.launches for fn in per_step}
+    wrappers = {"paged_attention": paged_attention_cuda,
+                "kv_append": kv_append_cuda,
+                "paged_attention_append": paged_attention_append_cuda,
+                "paged_attention_sharded": paged_attention_sharded}
     for key in record:
-        results[key]["launches"] = rows[key].launches
+        results[key]["launches"] = wrappers[key].launches
+    runner = eng.runner
+    replayed = {fn.__name__: sum(g.launches.get(fn, 0) * g.replays
+                                 for g in runner.step_graphs.values())
+                for fn in per_step}
+    check(all(replayed[fn.__name__] == n * graph["steps"]
+              for fn, n in per_step.items()),
+          f"{tag}: the graphs' recorded launches times their replays "
+          f"{replayed}, want {graph['steps']} steps' worth of {per_step}")
 
     st = eng.stats
     gen = sum(len(r.generated) for r in reqs)
@@ -1687,17 +1841,40 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
     clock = int(eng.pool.clock.cpu())
     check(st.warnings_fired == clock,
           f"{tag}: clock mirror {st.warnings_fired} != pool clock {clock}")
-    check(steady >= 4, f"{tag}: only {steady} steady steps were checked")
-    log(f"{tag}: {len(reqs)} requests finished, {steps} steps, "
+    tokens = [list(r.generated) for r in reqs]
+    diff = first_state_difference(eager_state, engine_state(eng))
+    check(tokens == eager_tokens and graph["steps"] == eager["steps"]
+          and diff is None,
+          f"{tag}: the graph run differs from the eager run: tokens "
+          f"{'equal' if tokens == eager_tokens else 'differ'}, steps "
+          f"{graph['steps']} against {eager['steps']}, first state "
+          f"difference {diff}")
+    del eager_state
+    log(f"{tag}: {len(reqs)} requests finished, {graph['steps']} steps, "
         f"{gen} generated tokens, warnings_fired == clock == {clock}, "
-        f"{steady} steady steps with {transfers} device->host transfers, "
-        f"launches {json.dumps(launches)}")
-    log(f"{tag}: {gen / wall:.1f} generated tokens/s, "
-        f"{1e3 * wall / steps:.2f} ms/step, on {name}; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        f"{graph['steady']} steady steps with {graph['transfers']} "
+        f"device->host transfers, launches {json.dumps(launches)} "
+        f"({graph['steps']} replays and {len(runner.step_graphs)} dry "
+        f"steps); tokens, block tables, snapshots, lengths, last tokens, "
+        f"pool and arena bitwise equal to the eager run's")
+    pool_mb = graph_pool_bytes(runner) / 2**20
+    capture = sum(g.capture_ms for g in runner.step_graphs.values())
+    log(f"{tag}: eager {1e3 * eager['wall'] / eager['steps']:.2f} ms/step "
+        f"({gen / eager['wall']:.1f} tokens/s), graph "
+        f"{1e3 * graph['wall'] / graph['steps']:.2f} ms/step "
+        f"({gen / graph['wall']:.1f} tokens/s); steady step wall eager "
+        f"{eager['steady_ms']:.3f} ms, graph {graph['steady_ms']:.3f} ms; "
+        f"device eager {eager['device_ms']:.3f} ms in {eager['ops']:.0f} "
+        f"ops ({100 * eager['device_ms'] / eager['steady_ms']:.1f}% busy), "
+        f"graph {graph['device_ms']:.3f} ms in {graph['ops']:.0f} ops "
+        f"({100 * graph['device_ms'] / graph['steady_ms']:.1f}% busy); "
+        f"{len(runner.step_graphs)} graphs {sorted(runner.step_graphs)} "
+        f"captured in {capture:.1f} ms, graph pool {pool_mb:.1f} MiB; on "
+        f"{name}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
     if roofline:
-        roofline_line(tag, "steady step", cost, dtype,
-                      1e3 * sum(steady_walls) / len(steady_walls), name)
+        roofline_line(tag, "steady step", eager["cost"], dtype,
+                      graph["steady_ms"], name)
     if tp > 1 and eng.kv_manager.kv_replicated:
         whole = 2 * cfg.n_layers * 512 * 16 * cfg.n_kv_heads * cfg.head_dim \
             * eng.kv[0]["k"].element_size()
@@ -1710,7 +1887,6 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
               f"{tag}: the shards' replicated arena copies differ")
         log(f"{tag}: {tp} replicated arena copies of {whole / 2**20:.1f} MiB "
             f"each (the whole arena), bitwise equal after the run")
-    tokens = [list(r.generated) for r in reqs]
     check(all(id(r) in kv_rows for r in reqs),
           f"{tag}: a request's K/V was not read before its last step")
     return (tokens, [kv_rows[id(r)] for r in reqs], tag,
@@ -1749,17 +1925,28 @@ def want_launches(layers, steps, shards=1):
 
 
 def reset_launches():
+    """Every kernel wrapper's count, and the count of capture dry steps,
+    to 0."""
+    from repro_torch.serving.runner import ModelRunner
+
     for fn in kernel_wrappers():
         fn.launches = 0
+    ModelRunner.dry_steps = 0
 
 
 def read_launches(tag, layers, steps, shards=1):
     """The counts of the path just driven (set to 0 just before it): each
-    wrapper exactly :func:`want_launches`, the fused launch at least once."""
+    wrapper exactly :func:`want_launches` of the engine steps (graph
+    replays or eager steps) and the captures' dry steps, the fused launch
+    at least once."""
+    from repro_torch.serving.runner import ModelRunner
+
     got = {fn.__name__: fn.launches for fn in kernel_wrappers()}
-    want = want_launches(layers, steps, shards)
+    dry = ModelRunner.dry_steps
+    want = want_launches(layers, steps + dry, shards)
     check(got == want and steps > 0,
-          f"{tag}: kernel launches {got}, want {want} ({steps} steps)")
+          f"{tag}: kernel launches {got}, want {want} ({steps} steps, {dry} "
+          f"capture dry steps)")
     return got
 
 
@@ -1768,8 +1955,11 @@ def fleet_steps(fleet, tag, layers, shards=1):
     fleet step must add :func:`want_launches` for the replicas that
     stepped, and a steady step (nothing queued, every row decoding and two
     or more tokens from its end) exactly one device->host transfer per
-    replica at work.  Returns (fleet steps, steady steps)."""
+    replica at work (a step that captures a graph adds its dry step's
+    launches too).  Returns (fleet steps, steady steps)."""
     import torch
+
+    from repro_torch.serving.runner import ModelRunner
 
     wrappers = kernel_wrappers()
     n = steady = 0
@@ -1783,6 +1973,7 @@ def fleet_steps(fleet, tag, layers, shards=1):
                 for r in e.scheduler.running) for e in live)
         steps = [e.stats.steps for e in live]
         before = {fn: fn.launches for fn in wrappers}
+        dry = ModelRunner.dry_steps
         if is_steady:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -1803,7 +1994,8 @@ def fleet_steps(fleet, tag, layers, shards=1):
         stepped = [e.stats.steps - s for e, s in zip(live, steps)]
         check(set(stepped) <= {0, 1}, f"{tag}: replica steps {stepped}")
         got = {fn.__name__: fn.launches - before[fn] for fn in wrappers}
-        want = want_launches(layers, sum(stepped), shards)
+        want = want_launches(layers, sum(stepped) + ModelRunner.dry_steps
+                             - dry, shards)
         check(got == want, f"{tag} fleet step {n}: kernel launches {got}, "
               f"want {want}")
         n += 1
@@ -1912,11 +2104,13 @@ def fleet_phase(name):
     L = cfg.n_layers
     sixteen = fleet_requests(cfg)
 
-    def single(params, tag, **where):
+    def single(params, tag, graphs=True, **where):
         """One engine (on this card, or as ``where`` says) serving the 16
-        requests (32 new tokens each), timed."""
+        requests (32 new tokens each), timed; through its step graphs, or
+        with the eager step."""
         eng = PagedServingEngine(cfg, params, **(where or {"device": "cuda"}),
                                  **FLEET_KW)
+        eng.runner.graphs = graphs
         reqs = [eng.submit(p, 32) for p in sixteen]
         reset_launches()
         _, wall = timed(eng.run)
@@ -1972,13 +2166,33 @@ def fleet_phase(name):
     read_launches("fleet (a) timed step()", L, fleet.stats.steps)
     check([list(r.generated) for r in reqs] == step_tokens,
           "fleet (a): two step() drains generate different tokens")
+    # the same fleet and engine on the eager step: what the graphs gain
+    fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
+                               **FLEET_KW)
+    for e in fleet.replicas:
+        e.runner.graphs = False
+    reqs = [fleet.submit(p, 32) for p in sixteen]
+    reset_launches()
+    _, wall2e = timed(fleet.run)
+    read_launches("fleet (a) eager run()", L, fleet.stats.steps)
+    check([list(r.generated) for r in reqs] == step_tokens,
+          "fleet (a): the eager run() and the graphs' step() generate "
+          "different tokens")
+    base_e, wall1e, _ = single(params, "fleet (a) eager single engine",
+                               graphs=False)
+    check(base_e == base, "fleet (a): the eager engine and the graph engine "
+          "generate different tokens")
     gen = 16 * 32
     log(f"fleet (a) bf16 run(): 2 driver threads, {run_steps} "
         f"replica steps, launches {json.dumps(launches)}; generated "
         f"tokens/s on the same 16 requests: fleet run() {gen / wall2:.1f}, "
         f"fleet step() from one thread {gen / wall3:.1f}, one engine "
         f"{gen / wall1:.1f} ({steps1} steps; run() {wall2 / wall1:.3f}x and "
-        f"step() {wall3 / wall1:.3f}x its wall time), on {name}")
+        f"step() {wall3 / wall1:.3f}x its wall time); on the eager step: "
+        f"fleet run() {gen / wall2e:.1f}, one engine {gen / wall1e:.1f} "
+        f"(run() {wall2e / wall1e:.3f}x its wall time); graphs against "
+        f"eager: one engine {wall1e / wall1:.3f}x, fleet run() "
+        f"{wall2e / wall2:.3f}x the tokens/s; on {name}")
     same, total = prefix_equal(step_tokens, base)
     log(f"fleet (a): {same} of {total} bf16 fleet tokens equal the single "
         f"engine's before each request's first difference")
@@ -2124,7 +2338,8 @@ def fleet_phase(name):
         read_launches(f"cli {argv[:2]}", reduced_layers, st.steps)
     log("cli: --replicas 2, --classes --stream and --trace served on the "
         "card at the reduced size, 0 lost")
-    return {"one engine": wall1, "fleet run()": wall2, "fleet step()": wall3}
+    return {"one engine": wall1, "fleet run()": wall2, "fleet step()": wall3,
+            "eager one engine": wall1e, "eager fleet run()": wall2e}
 
 
 def fleet_requests(cfg):
@@ -2193,10 +2408,12 @@ def device_rows(fn, calls):
 
 
 def profile_phase(name, tp=1, steps=5, arch="olmo-1b"):
-    """``--profile``: a torch.profiler trace of ``steps`` steady decode steps
+    """``--profile``: torch.profiler traces of ``steps`` steady decode steps
     of the full-width engine at ``tp`` shards (a fresh one, after the main
-    path's counts were read): wall and device-busy time per step, and the
-    kernels that take the device time.  For an MoE model also the expert
+    path's counts were read), with the eager step and then replaying its
+    captured graph: wall and device-busy time per step and the fused
+    launches the profiler counts (layers x shards, held), then the
+    kernels that take the graph step's device time.  For an MoE model also the expert
     layer alone at the step's shapes (decode, and a 16-token prefill
     chunk): its device time per step and its matrix products' share."""
     import gc
@@ -2224,27 +2441,35 @@ def profile_phase(name, tp=1, steps=5, arch="olmo-1b"):
     eng.scheduler.admit()
     while any(r.committed < len(r.prompt) for r in eng.scheduler.running):
         eng.step()
-    for _ in range(3):  # warm the decode path
+    for _ in range(3):  # warm the decode path (its graph captured)
         eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()  # wall time without the profiler
-    for _ in range(steps):
-        eng.step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
-    rows = device_rows(eng.step, steps)
-    busy = sum(r[0] for r in rows)
     tag = f"profile {arch} tp={tp}"
-    log(f"{tag}: {steps} steady decode steps on {name}: {wall:.2f} ms/step "
-        f"wall (unprofiled), {busy:.2f} ms/step of device time in "
-        f"{sum(r[1] for r in rows):.0f} device ops ({100 * busy / wall:.1f}% "
-        f"busy)")
-    attn = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
-    n_attn = sum(r[1] for r in rows if "paged_attention_kernel" in r[2])
-    log(f"{tag}: kernel 1 with the fused append {attn:.3f} ms/step in "
-        f"{n_attn:.0f} launches, {100 * attn / busy:.1f}% of the device time")
-    check(not any("kv_append_kernel" in r[2] for r in rows),
-          f"{tag}: a standalone kv_append launch in the steady step")
+    for graphs in (False, True):
+        eng.runner.graphs = graphs
+        eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # wall time without the profiler
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = device_rows(eng.step, steps)
+        busy = sum(r[0] for r in rows)
+        mode = "graph" if graphs else "eager"
+        log(f"{tag} {mode}: {steps} steady decode steps on {name}: "
+            f"{wall:.2f} ms/step wall (unprofiled), {busy:.2f} ms/step of "
+            f"device time in {sum(r[1] for r in rows):.0f} device ops "
+            f"({100 * busy / wall:.1f}% busy)")
+        attn = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
+        n_attn = sum(r[1] for r in rows if "paged_attention_kernel" in r[2])
+        log(f"{tag} {mode}: kernel 1 with the fused append {attn:.3f} "
+            f"ms/step in {n_attn:.0f} launches, {100 * attn / busy:.1f}% of "
+            f"the device time")
+        check(n_attn == tp * cfg.n_layers, f"{tag} {mode}: the profiler "
+              f"counts {n_attn} fused launches a step, want "
+              f"{tp * cfg.n_layers}")
+        check(not any("kv_append_kernel" in r[2] for r in rows),
+              f"{tag}: a standalone kv_append launch in the steady step")
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
     if not cfg.moe or tp != 1:

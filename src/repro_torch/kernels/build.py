@@ -14,11 +14,14 @@ The data-parallel fleet drives its replicas from one thread each, so what
 the kernel modules share across calls is thread-safe: :func:`load` and
 the typed entry points are cached by :func:`locked_cache` (threads that
 meet a cold library wait for one build instead of each starting
-``nvcc``), and the launch counters move through :func:`count_launch`.
+``nvcc``), and the launch counters move through :func:`count_launch`
+(and, for the launches of a captured CUDA graph, :func:`count_replay` at
+each replay).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -164,13 +167,42 @@ def locked_cache(fn):
 
 
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def count_launch(fn) -> None:
     """Add one to ``fn.launches``, a kernel wrapper's launch counter, under
-    a lock: a bare ``+=`` from two driver threads can lose a count."""
+    a lock: a bare ``+=`` from two driver threads can lose a count.  While
+    this thread records a CUDA graph (:func:`recording_launches`) nothing
+    is launched: the launch goes into the recording's tally instead, and
+    each replay of the graph adds it (:func:`count_replay`)."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[fn] = tally.get(fn, 0) + 1
+        return
     with _count_lock:
         fn.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """A context in which this thread's :func:`count_launch` calls fill the
+    yielded dict (wrapper -> launches recorded) and move no counter: the
+    kernels of a graph capture launch only when the graph is replayed."""
+    tally: dict = {}
+    _recording.tally = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
+
+
+def count_replay(tally: dict) -> None:
+    """One replay of a graph whose capture recorded ``tally``: each
+    wrapper's counter moves by the launches the graph just made."""
+    with _count_lock:
+        for fn, n in tally.items():
+            fn.launches += n
 
 
 @locked_cache

@@ -117,7 +117,14 @@ def _launcher():
 
 
 _tickets: dict = {}
+_retired: list = []  # grown-out buffers: a captured graph may still read one
 _tickets_lock = threading.Lock()
+
+
+def ticket_count(B: int, C: int, Hq: int, Hkv: int) -> int:
+    """Ticket counters a launch over [B, C, Hq] queries and Hkv KV heads
+    uses: one per (row, KV head, query block of the smallest group)."""
+    return B * Hkv * -(-(C * (Hq // Hkv)) // _MIN_GROUP)
 
 
 def _ticket_buffer(device, stream: int, n: int):
@@ -127,13 +134,36 @@ def _ticket_buffer(device, stream: int, n: int):
     one stream run in order, so every thread that launches on it (a
     fleet's driver threads on one card's default stream) may share the
     buffer; the get-or-grow holds a lock, so two threads that grow it at
-    once keep one buffer."""
+    once keep one buffer.  A buffer that grows is kept alive, since a CUDA
+    graph captured on the stream reads the old one at every replay; a
+    capture cannot grow it (the new buffer would lie in the graph's memory
+    pool, where the pool's other graphs may overwrite it):
+    :func:`reserve_tickets` first."""
     with _tickets_lock:
         buf = _tickets.get((device, stream))
         if buf is None or buf.numel() < n:
+            if (torch.device(device).type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "paged_attention_cuda: the capture stream's ticket "
+                    "buffer was not reserved before capture "
+                    "(reserve_tickets)")
+            if buf is not None:
+                _retired.append(buf)
             buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
             _tickets[(device, stream)] = buf
         return buf
+
+
+def reserve_tickets(device, stream: int, n: int):
+    """Make ``stream``'s ticket buffer on ``device`` hold ``n`` counters
+    (:func:`ticket_count`) before a graph is captured on it, so that the
+    buffer is ordinary device memory outside the graph's pool; returns
+    it."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _ticket_buffer(device, stream, n)
 
 
 def _check(cond: bool, msg: str, name: str = "paged_attention_cuda") -> None:
@@ -192,7 +222,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
         part = torch.empty(B * Hkv * S * nq * (D + 2), dtype=torch.float32,
                            device=q.device)
         tickets = _ticket_buffer(q.device, stream,
-                                 B * Hkv * -(-nq // _MIN_GROUP))
+                                 ticket_count(B, C, Hq, Hkv))
     # the launch sizes itself for, and runs on, the CURRENT device: make
     # that the inputs' device (a shard on cuda:1 while cuda:0 is current)
     append = [None] * 3 if _append is None else [t.data_ptr()

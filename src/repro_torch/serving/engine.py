@@ -20,7 +20,9 @@ Wiring and delegation over three layers with explicit contracts:
   superblock MECHANICS and host mirrors; the only layer that talks to the
   allocator (:class:`repro_torch.core.pagepool.DevicePagePool`).
 - :class:`repro_torch.serving.runner.ModelRunner` — the fused-step
-  EXECUTOR owning the model and the one-transfer-per-step invariant.
+  EXECUTOR owning the model and the one-transfer-per-step invariant; on a
+  card it serves every step through captured CUDA graphs, one per static
+  key (its module docstring), with no argument to ask for it.
 
 The historical surface (``submit/step/run/shrink``, ``pool``, ``kv``,
 ``queue``, ``_admit`` …) delegates to the layer that now owns it.
@@ -297,6 +299,30 @@ class PagedServingEngine:
                 and not self.scheduler._adaptive_release):
             self.shrink()
         self.stats.record_wall(time.time() - t0)
+
+    def _prepare_graphs(self) -> None:
+        """Capture now every step graph the scheduler can plan for the
+        requests it holds (``runner.py``): the prompt buffer widened to the
+        longest prompt, then each chunk size it plans (1, ``prefill_chunk``,
+        and the speculative width) under either validation verdict.  A
+        fleet calls it before its driver threads start, since a capture
+        forbids other threads' unsafe CUDA calls.  A no-op where the runner
+        steps eagerly."""
+        sched, kvm = self.scheduler, self.kv_manager
+        held = [*sched.queue, *sched.running]
+        if not self.runner.graphs or not held:
+            return
+        kvm.ensure_prompt_cap(max(len(r.prompt) for r in held))
+        chunks = {(1, False)}
+        if sched.prefill_chunk > 1:
+            chunks.add((sched.prefill_chunk, False))
+        if sched.speculative_k > 0:
+            chunks.add((sched.spec_chunk, True))
+        for C, speculative in sorted(chunks):
+            for validate in (True, False):
+                key = (C, speculative, validate, kvm._prompt_cap)
+                if key not in self.runner.step_graphs:
+                    self.runner.capture(kvm, key)
 
     def shrink(self, keep_superblocks: int | None = None) -> int:
         """Release every EMPTY superblock above the floor (maintenance sync

@@ -157,7 +157,10 @@ class KVCacheManager:
         donation are allowed sync points)."""
         return self._bt[slot].tolist()
 
-    def _ensure_prompt_cap(self, n: int) -> None:
+    def ensure_prompt_cap(self, n: int) -> None:
+        """Widen the prompt buffer to hold ``n`` tokens (doubling): a new
+        tensor, so a captured step graph over the old one is stale
+        (``runner.py``); every other per-slot array is written in place."""
         if n <= self._prompt_cap:
             return
         cap = self._prompt_cap
@@ -172,7 +175,7 @@ class KVCacheManager:
         """Install ``row`` (page ids, −1 padding to the block-table width)
         into ``slot`` and snapshot the CURRENT version of every mapped page
         through the allocator protocol — the OA baseline."""
-        self._ensure_prompt_cap(len(prompt))
+        self.ensure_prompt_cap(len(prompt))
         prow = np.zeros((self._prompt_cap,), np.int32)
         prow[: len(prompt)] = prompt
         bt_row = np.full((self.max_pages_per_seq,), -1, np.int32)

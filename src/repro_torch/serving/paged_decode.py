@@ -44,9 +44,12 @@ layer's KV append and attention are ONE launch of the hand-written kernel
 per shard (``kernels/ops.py``, ``paged_attention(..., append=...)``): the
 new K/V are written to the arena and read once, on the step's stream; on
 CPU tensors the plain append, then plain attention.  The JAX step's
-``lax.scan`` over layers is a Python loop over ``model.blocks``; its
-traced ``do_validate`` and ``chunk_budget`` are plain host values the
-scheduler already plans.
+``lax.scan`` over layers is a Python loop over ``model.blocks``.  Its
+traced ``chunk_budget`` and ``temperature`` may be 0-dim device tensors,
+which a captured CUDA graph reads at each replay (``serving/runner.py``),
+or host values, which the ops take as constants; ``do_validate`` stays a
+host value: it picks one of two graphs, as the reference's ``lax.cond``
+picks a branch, and a skipped validation is never computed.
 """
 
 from __future__ import annotations
@@ -246,7 +249,7 @@ def _padded_set(dst: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 
 def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
                       last_tok, active, prompt_buf, prompt_len, generator,
-                      temperature: float, chunk_budget: int = 1,
+                      temperature, chunk_budget=1,
                       draft_toks=None, draft_lens=None,
                       do_validate: bool | None = None, *, cfg,
                       greedy: bool = True, pages_per_compute_block: int = 1,
@@ -262,12 +265,13 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
     (uint32 versions); lengths [B] int32; last_tok [B] int32.  Read only:
     active [B] bool; prompt_buf [B, cap] / prompt_len [B] int32.
 
-    Host values: ``generator`` (a ``torch.Generator`` on the state's device,
+    Operands: ``generator`` (a ``torch.Generator`` on the state's device,
     used only when ``greedy`` is False: Gumbel-max sampling);
-    ``temperature``; ``chunk_budget`` (per-row chunk cap, clipped to
-    [1, chunk_size]); ``draft_toks`` [B, chunk_size−1] / ``draft_lens``
-    [B] device tensors (``speculative`` only); ``do_validate`` (None =
-    True) — run the OA validation pass this step.
+    ``temperature`` (a float or a 0-dim float32 tensor); ``chunk_budget``
+    (per-row chunk cap, clipped to [1, chunk_size]; an int or a 0-dim
+    int64 tensor); ``draft_toks`` [B, chunk_size−1] / ``draft_lens`` [B]
+    device tensors (``speculative`` only); ``do_validate`` (a host bool,
+    None = True) — run the OA validation pass this step.
 
     ``mesh``: tensor parallelism (module docstring) — ``model`` is then the
     sequence of shard models and ``kv`` the list of shard slabs; every other
@@ -295,7 +299,9 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
     plen = prompt_len.to(i64)
 
     # (1) per-row chunk sizing (device-side: no host knowledge of lengths)
-    budget = min(max(int(chunk_budget), 1), C)
+    budget = (torch.clamp(chunk_budget, 1, C)
+              if isinstance(chunk_budget, torch.Tensor)
+              else min(max(int(chunk_budget), 1), C))
     prefilling = ln < plen
     if speculative:
         dlens = torch.where(active & ~prefilling,
@@ -386,7 +392,10 @@ def fused_decode_step(model, kv, pool, block_tables, snapshot, lengths,
             u = torch.rand(logits.shape, generator=generator, device=dev)
             gumbel = -torch.log(-torch.log(
                 torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
-            nxt = torch.argmax(logits / max(temperature, 1e-6) + gumbel, -1)
+            temp = (torch.clamp(temperature, min=1e-6)
+                    if isinstance(temperature, torch.Tensor)
+                    else max(temperature, 1e-6))
+            nxt = torch.argmax(logits / temp + gumbel, -1)
         n_acc = torch.zeros_like(ln)
         commit_n = n_new
     samples = (ln + n_new) >= plen

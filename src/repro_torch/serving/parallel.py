@@ -26,10 +26,14 @@ Two drive modes:
   by the interleaving tests and by launch counts.
 - :meth:`DataParallelEngine.run` — one driver thread per replica running
   its own admit/step/maintain loop.  Python releases the GIL while a
-  thread blocks on its replica's read back, so N replicas keep N devices
-  busy.  Each thread makes its replica's device current (the current CUDA
-  device is per thread); replicas on one card share its default stream,
-  where their work runs in the order it was enqueued.
+  thread blocks on its replica's read back, and on a card while it
+  replays a step graph, so N replicas keep N devices busy.  Each thread
+  makes its replica's device current (the current CUDA device is per
+  thread); replicas on one card share its default stream, where their
+  work runs in the order it was enqueued.  Every graph a round can replay
+  is captured before its threads start (``PagedServingEngine.
+  _prepare_graphs``): a capture forbids other threads' unsafe CUDA calls,
+  and a graph found missing in a thread raises.
 
 **Self-healing.**  With a :class:`WatchdogConfig`, :meth:`run` becomes a
 supervised loop: every driver thread updates a per-replica heartbeat each
@@ -245,12 +249,29 @@ class DataParallelEngine:
         """One supervised round: drive every live replica that has work to
         a clean drain, a failure, or a stall.  Returns True iff a failover
         happened and the backlog needs another round."""
-        wd = self.watchdog
         workers = [i for i in range(len(self.replicas))
                    if self.alive[i] and (self.replicas[i].scheduler.queue
                                          or self.replicas[i].scheduler.running)]
         if not workers:
             return False
+        runners = []
+        for i in workers:  # every graph of the round, before the threads
+            eng = self.replicas[i]
+            with _current(eng.device):
+                eng._prepare_graphs()
+            runners.append(eng.runner)
+        for r in runners:
+            r.frozen = True
+        try:
+            return self._supervise(workers, max_steps)
+        finally:
+            for r in runners:
+                r.frozen = False
+
+    def _supervise(self, workers: list[int], max_steps: int) -> bool:
+        """Start a driver thread per worker and watch them (the body of
+        :meth:`_drive_round`)."""
+        wd = self.watchdog
         hb = {i: time.monotonic() for i in workers}
         stop = {i: threading.Event() for i in workers}
         errors: dict[int, BaseException] = {}

@@ -309,6 +309,7 @@ def test_cuda_fleet_threads_match_cpu_fleet(cuda):
     from repro_torch.kernels.paged_attention import paged_attention_append_cuda
     from repro_torch.models.transformer import init_decoder_lm
     from repro_torch.serving import DataParallelEngine
+    from repro_torch.serving.runner import ModelRunner
 
     cfg = reduced(get_config("olmo-1b"))
     params = init_decoder_lm(cfg, seed=4, dtype=torch.float32, device="cpu")
@@ -322,10 +323,13 @@ def test_cuda_fleet_threads_match_cpu_fleet(cuda):
                                    page_size=4, max_batch=3, prefill_chunk=8)
         reqs = [fleet.submit(p, 6) for p in prompts]
         before = paged_attention_append_cuda.launches
+        dry = ModelRunner.dry_steps
         st = fleet.run()
         if dev == cuda:
+            # each step's graph replay, and each capture's dry step
             assert paged_attention_append_cuda.launches - before == \
-                cfg.n_layers * st.steps
+                cfg.n_layers * (st.steps + ModelRunner.dry_steps - dry)
+            assert all(e.runner.step_graphs for e in fleet.replicas)
         for e in fleet.replicas:
             assert e.stats.warnings_fired == int(e.pool.clock.cpu())
         out.append(([r.generated for r in reqs], st.steps, st.preemptions))
@@ -691,3 +695,166 @@ def test_cuda_sharded_step_at_world_size_one(cuda):
     finally:
         dist.destroy_process_group()
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _graph_engine(cuda, case, graphs, **extra):
+    """A reduced engine of :data:`GRAPH_CASES` ``case``, stepping through
+    captured graphs or eagerly."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+
+    c = GRAPH_CASES[case]
+    cfg = reduced(get_config(c.get("arch", "olmo-1b")))
+    params = init_decoder_lm(cfg, seed=4, dtype=getattr(torch, c["dtype"]),
+                             device="cpu")
+    where = (dict(tensor_parallel=2, devices=[cuda, cuda])
+             if c.get("tp") else dict(device=cuda))
+    eng = PagedServingEngine(cfg, params, **where, **{**c["kw"], **extra})
+    assert eng.runner.graphs  # the card's default
+    eng.runner.graphs = graphs
+    return cfg, eng
+
+
+def _engine_state(eng):
+    """Everything a step writes, cloned: the per-slot arrays, the pool's
+    tensors and every shard's arena."""
+    from repro_torch.core.pagepool import PagePool
+
+    kvm = eng.kv_manager
+    out = {"block_tables": kvm._bt, "snapshot": kvm._snap,
+           "lengths": kvm._len, "last_tok": kvm._last}
+    out.update({f"pool.{f}": t for f, t in zip(PagePool._fields, eng.pool)})
+    kvs = eng.kv if isinstance(eng.kv, list) else [eng.kv]
+    out.update({f"kv{s}.{n}": kv[n] for s, kv in enumerate(kvs)
+                for n in ("k", "v")})
+    return {k: v.clone() for k, v in out.items()}
+
+
+_PAGED = dict(num_pages=32, page_size=4, max_batch=3, prefill_chunk=8)
+#: reduced engines the captured step is held against the eager one on
+GRAPH_CASES = {
+    "float32": dict(dtype="float32", kw=_PAGED),
+    "bfloat16": dict(dtype="bfloat16", kw=_PAGED),
+    "tp2": dict(dtype="float32", tp=True, kw=_PAGED),
+    "moe": dict(dtype="float32", arch="olmoe-1b-7b", kw=_PAGED),
+    "mqa_tp2": dict(dtype="bfloat16", arch="paligemma-3b", tp=True,
+                    kw=_PAGED),
+    "tight_pool": dict(dtype="float32", kw=dict(
+        num_pages=8, page_size=4, max_batch=3, prefill_chunk=8)),
+    "speculative": dict(dtype="float32", kw=dict(
+        num_pages=32, page_size=4, max_batch=3, speculative_k=4)),
+    "prefix_cache": dict(dtype="float32", kw=dict(
+        _PAGED, num_pages=24, prefix_cache=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_cuda_graph_engine_matches_eager(cuda, case):
+    """The engine stepping through captured CUDA graphs against the same
+    engine stepping eagerly: tokens, counters, block tables, snapshots,
+    lengths, last tokens, the pool and the arena bitwise equal, every
+    step a replay, and each replay's recorded fused launches layers x
+    shards."""
+    import dataclasses
+
+    from repro_torch.kernels.paged_attention import paged_attention_append_cuda
+
+    runs = []
+    for graphs in (False, True):
+        cfg, eng = _graph_engine(cuda, case, graphs)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in rng.integers(3, 14, 5)]
+        if case == "prefix_cache":
+            prompts = [prompts[0], prompts[0], prompts[0] + prompts[1]]
+        reqs = [eng.submit(p, 8) for p in prompts]
+        st = eng.run()
+        assert all(r.state == "finished" for r in reqs)
+        assert st.warnings_fired == int(eng.pool.clock.cpu())
+        runs.append(([r.generated for r in reqs],
+                     {f.name: getattr(st, f.name)
+                      for f in dataclasses.fields(st)
+                      if f.type in ("int", int)},
+                     _engine_state(eng)))
+    (tok0, st0, state0), (tok1, st1, state1) = runs
+    assert tok1 == tok0 and st1 == st0
+    for k in state0:
+        assert torch.equal(state0[k], state1[k]), k
+    graphs = eng.runner.step_graphs.values()
+    assert sum(g.replays for g in graphs) == st1["steps"] > 0
+    shards = 2 if GRAPH_CASES[case].get("tp") else 1
+    assert all(g.launches[paged_attention_append_cuda]
+               == cfg.n_layers * shards for g in graphs)
+    if case == "speculative":
+        assert any(k[1] for k in eng.runner.step_graphs)
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_graph_engine_repeats_itself(cuda):
+    """A sampling engine on graphs (the runner's generator registered with
+    each graph) draws the same tokens in two runs from one seed."""
+    out = []
+    for _ in range(2):
+        cfg, eng = _graph_engine(cuda, "float32", True, greedy=False,
+                                 temperature=0.8, seed=3)
+        rng = np.random.default_rng(4)
+        reqs = [eng.submit(rng.integers(0, cfg.vocab, int(n)).tolist(), 8)
+                for n in rng.integers(3, 14, 5)]
+        eng.run()
+        out.append([r.generated for r in reqs])
+    assert out[0] == out[1]
+    assert len({t for g in out[0] for t in g}) > 1
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here a host read inside it) raises
+    from the engine; nothing falls back to the eager step."""
+    from repro_torch.serving import runner as runner_mod
+
+    step = runner_mod.fused_decode_step
+
+    def reads_back(*a, **kw):
+        out = step(*a, **kw)
+        out[6].sum().item()  # a device->host read: forbidden in a capture
+        return out
+    monkeypatch.setattr(runner_mod, "fused_decode_step", reads_back)
+    cfg, eng = _graph_engine(cuda, "float32", True)
+    eng.submit(list(range(1, 6)), 4)
+    with pytest.raises(RuntimeError):
+        eng.run()
+    assert not eng.runner.step_graphs and eng.stats.steps == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_stream_tickets_lie_outside_the_graph_pool(cuda):
+    """Kernel 1's split-merge tickets of the capture stream are reserved
+    before capture, in ordinary device memory, not in the pool the
+    runner's graphs share; and they read zero after the replays."""
+    import importlib
+
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    # 1024 pages of 4 tokens at head dim 16: rows split 4 ways, so every
+    # launch merges through the tickets
+    cfg, eng = _graph_engine(cuda, "float32", True, num_pages=1024)
+    assert pa.row_splits(1024, cfg.head_dim, 4) > 1
+    rng = np.random.default_rng(4)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab, int(n)).tolist(), 8)
+            for n in rng.integers(3, 14, 5)]
+    eng.run()
+    assert all(r.state == "finished" for r in reqs)
+    runner = eng.runner
+    assert len(runner.step_graphs) >= 2
+    dev = torch.device("cuda", torch.cuda.current_device())
+    buf = pa._tickets[(dev, runner._stream.cuda_stream)]
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(buf).cpu()) == 0
+    seg = [s for s in torch.cuda.memory_snapshot()
+           if s["address"] <= buf.data_ptr() < s["address"] + s["total_size"]]
+    assert len(seg) == 1
+    assert tuple(seg[0]["segment_pool_id"]) != tuple(runner._mempool)
+    assert any(tuple(s["segment_pool_id"]) == tuple(runner._mempool)
+               for s in torch.cuda.memory_snapshot())
