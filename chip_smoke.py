@@ -134,19 +134,25 @@ run with a nonzero exit and no result line.
    multiple of its SSD chunk), recurrentgemma-9b (2560: past its 2048
    window, misaligned with it, the chunked RG-LRU branch) and
    whisper-tiny (1500 seeded frames, 64 tokens), B=4, seeded weights in
-   float32 then bf16 (the main dtype), each followed by 64 greedy decode
-   steps.  Held in float32: finite logits and states, ``len``, the
+   float32 then bf16 (the main dtype), each prefill followed by 64 greedy
+   decode steps twice, over two copies of its cache: eagerly, and through
+   ``models/graphs.py::graph_decode_step`` (one captured CUDA graph,
+   replayed).  Held in float32: finite logits and states, ``len``, the
    decoded logits against teacher forcing over the same tokens within
    3e-2 abs+rel (5e-2 for the ring-windowed recurrentgemma), as the
-   reference's tests allow.  Held in both dtypes: every steady
-   ``decode_step`` (the third on) makes no device->host transfer (sync
-   debug mode "error"), and no kernel of the repository launches (counts
-   set to 0 before, read after).  Printed: prefill ms (cold and warm),
-   decode ms/step, tokens/s and peak memory; bf16's greedy tokens equal
-   to float32's, and olmo-1b bf16's equal to the paged engine's on the
-   same prompts and weights (its arena is bf16: the equal prefix); a
-   roofline line for olmo-1b bf16's prefill and decode step (counted by
-   ``launch/op_analysis.py`` on fake tensors at the same shapes).
+   reference's tests allow.  Held in both dtypes: the graph run's tokens,
+   logits and final cache bitwise the eager run's; every steady eager
+   ``decode_step`` (the third on) and every graph call, the capturing
+   one included, makes no device->host transfer (sync debug mode
+   "error"); no kernel of the repository launches (counts set to 0
+   before, read after) and the capture records none.  Printed: prefill
+   ms (cold and warm), eager and graph decode ms/step and tokens/s, the
+   capture's ms and its graph pool's bytes, and peak memory; bf16's
+   greedy tokens equal to float32's, and olmo-1b bf16's equal to the
+   paged engine's on the same prompts and weights (its arena is bf16:
+   the equal prefix); roofline lines for olmo-1b bf16's prefill and its
+   eager and graph decode step (counted by ``launch/op_analysis.py`` on
+   fake tensors at the same shapes).
 7. Training (h): (1) every reduced config, card against CPU in float32
    with TF32 off, from the same seeded weights and batch: ``Model.loss``
    within 1e-5 + 1e-4|x|, every gradient leaf within 1e-5 + 1e-3|x|, and
@@ -250,8 +256,10 @@ nonzero without CUDA.  ``--profile`` adds a torch.profiler breakdown of
 steady full-width decode steps, eager and then replaying the captured
 step (olmo-1b at TP=1 and TP=2, olmoe-1b-7b at TP=1 with its expert
 layer alone at the step's shapes, paligemma-3b at TP=2) after the fleet
-phase, and the device time of the fleet's drain beside the fleet phase's
-wall times.
+phase, the device time of the fleet's drain beside the fleet phase's
+wall times, and 5 steady non-paged decode steps of olmo-1b bf16 (phase
+(g)'s shapes), eager and replaying ``graph_decode_step``'s graph: wall
+and device ms a step, busy share.
 """
 
 from __future__ import annotations
@@ -1569,16 +1577,16 @@ def first_state_difference(a, b):
     return None
 
 
-def graph_pool_bytes(runner):
-    """Bytes of the device segments in the memory pool ``runner``'s step
-    graphs share (0 before its first capture)."""
+def graph_pool_bytes(pool):
+    """Bytes of the device segments in the graph memory pool ``pool`` (a
+    runner's ``_mempool``, a decode step's; 0 for None, before a first
+    capture)."""
     import torch
 
-    if runner._mempool is None:
+    if pool is None:
         return 0
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-               if tuple(s.get("segment_pool_id", ())) ==
-               tuple(runner._mempool))
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
 
 
 def serve(eng, tag, per_step, *, rows=None, roofline=None):
@@ -1857,7 +1865,7 @@ def engine_phase(results, name, tp=1, dtype="bfloat16", arch="olmo-1b",
         f"({graph['steps']} replays and {len(runner.step_graphs)} dry "
         f"steps); tokens, block tables, snapshots, lengths, last tokens, "
         f"pool and arena bitwise equal to the eager run's")
-    pool_mb = graph_pool_bytes(runner) / 2**20
+    pool_mb = graph_pool_bytes(runner._mempool) / 2**20
     capture = sum(g.capture_ms for g in runner.step_graphs.values())
     log(f"{tag}: eager {1e3 * eager['wall'] / eager['steps']:.2f} ms/step "
         f"({gen / eager['wall']:.1f} tokens/s), graph "
@@ -2681,24 +2689,58 @@ def no_host_reads(dev):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def decode_loop(step, params, cache, first, S, steps, dev, free, warm=2):
+    """``steps`` greedy decode steps of ``step`` (``decode_step``'s
+    signature) from a prefill's ``cache`` and last logits ``first`` [B, V]:
+    every step from the ``free``-th on under :func:`no_host_reads`, the
+    steps from the ``warm``-th on timed.  Returns the tokens [B, steps +
+    1], the logits [B, steps + 1, V], the final cache and the timed
+    seconds."""
+    import torch
+
+    rows = [first]
+    toks = [first.argmax(-1).to(torch.int32)]
+    pos = torch.full((MODEL_B,), S, dtype=torch.int32, device=dev)
+    for i in range(steps):
+        if i == warm:
+            _sync(dev)
+            t0 = time.perf_counter()
+        with no_host_reads(dev) if i >= free else contextlib.nullcontext():
+            logits, cache = step(params, cache, {"token": toks[-1],
+                                                 "pos": pos})
+            toks.append(logits.argmax(-1).to(torch.int32))
+            pos = pos + 1
+        rows.append(logits)
+    _sync(dev)
+    return (torch.stack(toks, dim=1), torch.stack(rows, dim=1), cache,
+            time.perf_counter() - t0)
+
+
 def model_run(cfg, S, dtype, dev="cuda", steps=MODEL_STEPS, seed=0,
               paged=False, init_dev=None):
     """One model through ``build_model`` on ``dev``: seeded ``dtype``
     weights, a prefill of B=4 prompts of S tokens into a cache of S +
-    ``steps`` slots, ``steps`` greedy decode steps (all but the first two
-    under :func:`no_host_reads`), then teacher forcing over the prompts
-    and the fed tokens, unembedding only the decoded positions.  Checks
-    (raising): finite logits and states, ``len``, no kernel launch.
-    Returns the tokens [B, steps + 1], the decoded logits [B, steps + 1,
-    V] (on ``dev``), the teacher-forcing error and the times; with
-    ``paged`` (a decoder LM) also the paged engine's tokens on the same
-    prompts and weights.  The weights are drawn on ``init_dev`` (default
-    ``dev``), so two runs with the same ``init_dev`` share them."""
+    ``steps`` slots, then ``steps`` greedy decode steps twice from that
+    prefill, over two copies of its cache: eagerly (all but the first two
+    steps under :func:`no_host_reads`), and through
+    ``models/graphs.py::graph_decode_step`` (one captured graph, replayed;
+    every call, the capturing one included, under :func:`no_host_reads`);
+    then
+    teacher forcing over the prompts and the fed tokens, unembedding only
+    the decoded positions.  Checks (raising): finite logits and states,
+    ``len``, no kernel launch (the capture recording none), the graph run
+    bitwise the eager run (tokens, logits, final cache).  Returns the
+    tokens [B, steps + 1], the decoded logits [B, steps + 1, V] (on
+    ``dev``), the teacher-forcing error and the times (the graph run's
+    too, with its capture ms and graph pool bytes); with ``paged`` (a
+    decoder LM) also the paged engine's tokens on the same prompts and
+    weights.  The weights are drawn on ``init_dev`` (default ``dev``), so
+    two runs with the same ``init_dev`` share them."""
     import gc
 
     import torch
 
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, graph_decode_step
     from repro_torch.models.transformer import unembed
 
     dev = torch.device(dev)
@@ -2720,42 +2762,48 @@ def model_run(cfg, S, dtype, dev="cuda", steps=MODEL_STEPS, seed=0,
         cache, logits = model.prefill(params, batch, S + steps)
         _sync(dev)
         times.append(time.perf_counter() - t0)
-    rows = [logits[:, -1]]
-    toks = [rows[0].argmax(-1).to(torch.int32)]
-    pos = torch.full((MODEL_B,), S, dtype=torch.int32, device=dev)
-    warm = 2
-    for i in range(steps):
-        if i == warm:
-            _sync(dev)
-            t0 = time.perf_counter()
-        with no_host_reads(dev) if i >= warm else contextlib.nullcontext():
-            logits, cache = model.decode_step(params, cache,
-                                              {"token": toks[-1], "pos": pos})
-            toks.append(logits.argmax(-1).to(torch.int32))
-            pos = pos + 1
-        rows.append(logits)
-    _sync(dev)
-    decode_s = time.perf_counter() - t0
+    gcache = {k: v.clone() for k, v in cache.items()}  # the graph run's
+    toks, dec, cache, decode_s = decode_loop(
+        model.decode_step, params, cache, logits[:, -1], S, steps, dev,
+        free=2)
+    step = graph_decode_step(model)
+    gtoks, gdec, gcache, graph_s = decode_loop(
+        step, params, gcache, logits[:, -1], S, steps, dev, free=0)
     launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
     check(not any(launches.values()),
           f"{cfg.name}: the non-paged path launched kernels {launches}")
-    dec = torch.stack(rows, dim=1)
-    toks = torch.stack(toks, dim=1)
+    graphs = list(step.graphs.values())  # none on the CPU: eager there
+    check(len(graphs) == (dev.type == "cuda") and all(
+        g.replays == steps and not g.launches for g in graphs),
+          f"{cfg.name}: {len(graphs)} decode graphs, replays "
+          f"{[g.replays for g in graphs]}, recorded launches "
+          f"{[g.launches for g in graphs]}; want 1 on a card, {steps}, "
+          f"none")
+    check(torch.equal(gtoks, toks) and torch.equal(gdec, dec),
+          f"{cfg.name}: the graph run's tokens or logits differ from the "
+          f"eager run's (tokens equal: {torch.equal(gtoks, toks)})")
+    check(set(gcache) == set(cache) and all(
+        torch.equal(gcache[k], cache[k]) for k in cache),
+          f"{cfg.name}: the graph run's final cache differs from the eager "
+          f"run's in {[k for k in cache if not torch.equal(gcache[k], cache[k])]}")
     check(bool(torch.isfinite(dec).all()), f"{cfg.name}: non-finite logits")
     for k, v in cache.items():
         check(k == "len" or bool(torch.isfinite(v).all()),
               f"{cfg.name}: non-finite cache {k}")
     check(bool((cache["len"] == S + steps).all()),
           f"{cfg.name}: len {cache['len'].tolist()}, want {S + steps}")
-    del cache
+    pool = sum(graph_pool_bytes(pool) for _, pool in step.streams.values())
+    capture_ms = sum(g.capture_ms for g in graphs)
+    del cache, gcache, gdec, step, graphs  # the graph and its pool
     hidden, _ = model.forward(params, {**batch, "tokens": torch.cat(
         [batch["tokens"], toks[:, :steps]], dim=1)})
     tf = unembed(cfg, params, hidden[:, S - 1:]).float()
     del hidden
     diff = (dec - tf).abs()
     out = {"tokens": toks.cpu(), "logits": dec, "init_s": init_s,
-           "prefill_s": times, "decode_s": decode_s,
-           "timed_steps": steps - warm, "tf_max_abs": float(diff.max()),
+           "prefill_s": times, "decode_s": decode_s, "graph_s": graph_s,
+           "capture_ms": capture_ms, "pool_bytes": pool,
+           "timed_steps": steps - 2, "tf_max_abs": float(diff.max()),
            # the least tol with |decode - teacher| <= tol + tol |teacher|
            "tf_tol": float((diff / (1 + tf.abs())).max()),
            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
@@ -2809,10 +2857,62 @@ def fake_counts(cfg, kind, B, S, dtype, cache_size=None):
             return analyze(model.decode_step, params, cache, batch)
 
 
+def profile_decode_graph(name, steps=5):
+    """``--profile``: torch.profiler traces of ``steps`` steady non-paged
+    decode steps of full-width olmo-1b in bf16 (phase (g)'s B=4 and
+    512-token prompts), eager and then replaying
+    ``graph_decode_step``'s graph: wall ms/step (unprofiled), device ms
+    and ops a step, busy share, and the kernels that take the graph
+    step's device time."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, graph_decode_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("olmo-1b")
+    S = MODEL_PROMPTS["olmo-1b"]
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    cache, logits = model.prefill(params, model_batch(cfg, S, "cuda"),
+                                  S + MODEL_STEPS)
+    state = {"cache": cache, "tok": logits[:, -1].argmax(-1).to(torch.int32),
+             "pos": torch.full((MODEL_B,), S, dtype=torch.int32,
+                               device="cuda")}
+    tag = "profile olmo-1b bf16 non-paged decode"
+    for mode, step in (("eager", model.decode_step),
+                       ("graph", graph_decode_step(model))):
+        def one():
+            logits, state["cache"] = step(params, state["cache"], {
+                "token": state["tok"], "pos": state["pos"]})
+            state["tok"] = logits.argmax(-1).to(torch.int32)
+            state["pos"] = state["pos"] + 1
+        for _ in range(3):  # warm (the graph captured)
+            one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        rows = device_rows(one, steps)
+        busy = sum(r[0] for r in rows)
+        log(f"{tag} {mode}: {steps} steady steps (B={MODEL_B}) on {name}: "
+            f"{wall:.3f} ms/step wall (unprofiled), {busy:.3f} ms/step of "
+            f"device time in {sum(r[1] for r in rows):.0f} device ops "
+            f"({100 * busy / wall:.1f}% busy)")
+    for ms, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"  {ms:8.3f} ms/step  {count:6.0f}/step  {key[:90]}")
+
+
 def models_phase(name, measured):
     """Phase 6 (g): olmo-1b, mamba2-780m, recurrentgemma-9b and
     whisper-tiny at full width and depth through ``build_model``, float32
-    then bf16 (module docstring); olmo-1b bf16's warm prefill and decode
+    then bf16, decoding eagerly and through captured graphs (module
+    docstring); olmo-1b bf16's warm prefill and eager and graph decode
     ms/step go into ``measured`` for their roofline lines."""
     import torch
 
@@ -2835,16 +2935,23 @@ def models_phase(name, measured):
                 f"({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
                 f"{cfg.vocab_padded}); init {r['init_s']:.2f} s, prefill "
                 f"{1e3 * r['prefill_s'][0]:.2f} ms cold, "
-                f"{1e3 * r['prefill_s'][1]:.2f} ms warm, decode "
-                f"{1e3 * r['decode_s'] / r['timed_steps']:.3f} ms/step, "
-                f"{n / r['decode_s']:.1f} tokens/s, peak "
-                f"{r['peak_gib']:.2f} GiB allocated, on {name}; decode vs "
-                f"teacher forcing max abs {r['tf_max_abs']:.3g}, abs+rel "
-                f"{r['tf_tol']:.3g} (limit {tol} in float32); 0 kernel "
-                f"launches")
+                f"{1e3 * r['prefill_s'][1]:.2f} ms warm, decode eager "
+                f"{1e3 * r['decode_s'] / r['timed_steps']:.3f} ms/step "
+                f"({n / r['decode_s']:.1f} tokens/s), graph "
+                f"{1e3 * r['graph_s'] / r['timed_steps']:.3f} ms/step "
+                f"({n / r['graph_s']:.1f} tokens/s; capture "
+                f"{r['capture_ms']:.1f} ms, graph pool "
+                f"{r['pool_bytes']} bytes), peak {r['peak_gib']:.2f} GiB "
+                f"allocated, on {name}; decode vs teacher forcing max abs "
+                f"{r['tf_max_abs']:.3g}, abs+rel {r['tf_tol']:.3g} (limit "
+                f"{tol} in float32); the graph run bitwise the eager run "
+                f"(tokens, logits, final cache), 0 host reads in its "
+                f"capture and replays, 0 kernel launches")
             if arch == "olmo-1b" and dtype == torch.bfloat16:
                 measured["prefill"] = 1e3 * r["prefill_s"][1]
                 measured["decode"] = 1e3 * r["decode_s"] / r["timed_steps"]
+                measured["decode_graph"] = (1e3 * r["graph_s"]
+                                            / r["timed_steps"])
             if dtype == torch.float32:
                 check(r["tf_tol"] <= tol,
                       f"{tag}: decode vs teacher forcing needs tolerance "
@@ -4155,6 +4262,10 @@ def finish_dryrun(out, proc, measured, name):
         for key, (tag, what, *_) in COUNTED.items():
             roofline_line(tag, what, counts[key], "bfloat16", measured[key],
                           name)
+        # the captured decode step does the eager step's work
+        tag, what = COUNTED["decode"][:2]
+        roofline_line(tag, f"graph {what}", counts["decode"], "bfloat16",
+                      measured["decode_graph"], name)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4220,6 +4331,7 @@ def main() -> int:
         profile_phase(name, arch="olmoe-1b-7b")
         profile_phase(name, tp=TP, arch="paligemma-3b")
         profile_fleet(name, walls)
+        profile_decode_graph(name)
         profile_train(name)
 
     finish_dryrun(dry_dir, dry, measured, name)

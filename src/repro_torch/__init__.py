@@ -43,6 +43,12 @@ functions (``alloc_pages_batch`` ...    public functions (each returns a
 ``models/model.py``                     ``repro/models/model.py``
                                         (``build_model``, ``Model`` with
                                         ``loss``)
+``models/graphs.py``                    ``jax.jit(model.decode_step,
+(``graph_decode_step``)                 donate_argnums=1)``: one captured
+                                        CUDA graph a key on a card
+``capture.py``                          (the capture rule, stream and
+                                        recording shared by the runner's
+                                        and the decode step's graphs)
 ``optim/adamw.py``                      ``repro/optim/adamw.py`` (state by
                                         parameter name, updated in place;
                                         on DTensors ZeRO-1's moments)

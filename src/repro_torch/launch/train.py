@@ -4,8 +4,9 @@ The port of ``repro.launch.train``: the same flags, supervisor loop and
 output lines, plus ``--device`` (default ``cuda``; the tests pass
 ``--device cpu``).  Parameters start as the seeded bf16 ``init`` of the
 config's family, with gradients turned on; the AdamW moments are float32
-(``optim/adamw.py``).  The reference's ``--mesh`` scales have no
-counterpart here: one device runs the step.
+(``optim/adamw.py``).  One device runs the step.  The reference's
+docstring names ``--mesh`` and ``--elastic-restore`` flags, but its
+parser has neither, and neither has this one.
 
 Fault tolerance demonstrated end-to-end: ``--fail-at-step N`` raises a
 simulated host failure mid-run; the driver's supervisor loop restores the

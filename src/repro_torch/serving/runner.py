@@ -53,7 +53,8 @@ The rule: graphs serve wherever every tensor of the step lies on one card
 — without a mesh, or with every shard of the mesh on one card (one
 single-device graph).  A mesh over several cards, and the CPU, run the
 eager step.  ``ModelRunner.graphs`` is the rule's verdict
-(:func:`uses_graphs`); the tests set it to compare the two paths.
+(``capture.py::uses_graphs``, which also decides for the model path's
+decode graphs); the tests set it to compare the two paths.
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.capture import record_graph, side_stream, uses_graphs
 from repro_torch.core import pagepool as pp
-from repro_torch.kernels.build import count_replay, recording_launches
+from repro_torch.kernels.build import count_replay
 from repro_torch.kernels.paged_attention import reserve_tickets, ticket_count
 from .kv_manager import DeviceStepState, KVCacheManager
 from .paged_decode import _local_cfg, fused_decode_step
@@ -111,14 +113,6 @@ class StepGraph:
         self.launches: dict = {}
         self.replays = 0
         self.capture_ms = 0.0
-
-
-def uses_graphs(device: torch.device, mesh=None) -> bool:
-    """The module docstring's rule: a step is captured where every tensor
-    of it lies on one card — ``device`` a CUDA device, and ``mesh`` (if
-    any) of shards all on one card."""
-    return torch.device(device).type == "cuda" and (
-        mesh is None or len(set(mesh.devices)) == 1)
 
 
 def _arena(kv) -> list:
@@ -290,11 +284,8 @@ class ModelRunner:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._mempool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
+        with side_stream(self._stream, self.device):
             yield
-        cur.wait_stream(self._stream)
 
     def _reserve_tickets(self, B: int, chunk_size: int) -> None:
         """The capture stream's split-merge tickets at the size of this
@@ -360,14 +351,8 @@ class ModelRunner:
         """Capture ``body()`` as a CUDA graph on the capture stream, into
         the runner's memory pool; nothing runs.  Returns (the graph, the
         kernel launches it recorded)."""
-        graph = torch.cuda.CUDAGraph()
-        if not self.greedy:
-            graph.register_generator_state(self.generator)
-        with recording_launches() as tally:
-            with torch.cuda.graph(graph, pool=self._mempool,
-                                  stream=self._stream):
-                body()
-        return graph, tally
+        return record_graph(body, self._stream, self._mempool,
+                            None if self.greedy else self.generator)
 
     @staticmethod
     def _replay(graph) -> None:

@@ -8,6 +8,8 @@ may round to a neighbouring bf16 value); the KV append is bit-exact, and
 the fused append + attention launch is bitwise the two-launch pair.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -858,3 +860,123 @@ def test_cuda_capture_stream_tickets_lie_outside_the_graph_pool(cuda):
     assert tuple(seg[0]["segment_pool_id"]) != tuple(runner._mempool)
     assert any(tuple(s["segment_pool_id"]) == tuple(runner._mempool)
                for s in torch.cuda.memory_snapshot())
+
+
+#: reduced non-paged models whose captured decode step is held against the
+#: eager one on the card
+DECODE_GRAPH_ARCHS = ["olmo-1b", "olmoe-1b-7b", "whisper-tiny",
+                      "recurrentgemma-9b", "mamba2-780m"]
+
+
+def _prefilled(cuda, arch, seed=3, dtype=torch.float32):
+    """A reduced ``build_model`` on the card, seeded ``dtype`` weights and
+    a prefill of 2 rows of 20 tokens into 32 slots: (model, weights,
+    cache, the next tokens)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(seed=3, dtype=dtype, device=cuda)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 20)).astype(np.int32)).to(cuda)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(cuda)
+    cache, logits = model.prefill(params, batch, 32)
+    return model, params, cache, logits[:, -1].argmax(-1).to(torch.int32)
+
+
+@contextlib.contextmanager
+def _no_host_reads():
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", DECODE_GRAPH_ARCHS)
+def test_cuda_graph_decode_step_matches_eager(cuda, arch):
+    """``graph_decode_step`` against the eager ``decode_step`` from one
+    prefill (its cache cloned), float32, 6 greedy steps: logits, tokens
+    and every cache leaf bitwise; one key, every call a replay of it, and
+    no kernel of the repository recorded."""
+    from repro_torch.models import graph_decode_step
+
+    model, params, cache, tok = _prefilled(cuda, arch)
+    gcache = {k: v.clone() for k, v in cache.items()}
+    step = graph_decode_step(model)
+    gtok = tok.clone()
+    pos = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    for i in range(6):
+        logits, cache = model.decode_step(params, cache,
+                                          {"token": tok, "pos": pos})
+        glogits, gcache = step(params, gcache, {"token": gtok, "pos": pos})
+        assert torch.equal(glogits, logits), i
+        tok = logits.argmax(-1).to(torch.int32)
+        gtok = glogits.argmax(-1).to(torch.int32)
+        pos = pos + 1
+    assert set(gcache) == set(cache)
+    for k in cache:
+        assert torch.equal(gcache[k], cache[k]), k
+    (g,) = step.graphs.values()
+    assert g.replays == 6 and not g.launches
+
+
+@pytest.mark.cuda
+def test_cuda_graph_decode_replay_reads_nothing_back(cuda):
+    """No call makes a device->host transfer (sync debug mode "error"):
+    the capturing one (its warm-up step and the recording), replays of
+    the returned cache, and a second prefill's cache copied into the
+    static buffers."""
+    from repro_torch.models import graph_decode_step
+
+    model, params, cache, tok = _prefilled(cuda, "olmo-1b",
+                                           dtype=torch.bfloat16)
+    _, _, other, tok2 = _prefilled(cuda, "olmo-1b", seed=4,
+                                   dtype=torch.bfloat16)
+    want, _ = model.decode_step(params, {k: v.clone() for k, v in
+                                         other.items()},
+                                {"token": tok2, "pos": torch.full(
+                                    (2,), 20, dtype=torch.int32,
+                                    device=cuda)})
+    step = graph_decode_step(model)
+    pos = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    with _no_host_reads():
+        logits, cache = step(params, cache, {"token": tok, "pos": pos})
+        for _ in range(3):
+            pos = pos + 1
+            logits, cache = step(params, cache, {
+                "token": logits.argmax(-1).to(torch.int32), "pos": pos})
+        got, _ = step(params, other, {"token": tok2, "pos": torch.full(
+            (2,), 20, dtype=torch.int32, device=cuda)})
+    assert torch.equal(got, want)
+    (g,) = step.graphs.values()
+    assert g.replays == 5
+
+
+@pytest.mark.cuda
+def test_cuda_graph_decode_failed_capture_raises(cuda):
+    """A decode step that cannot be captured (here a host read inside it)
+    raises; nothing falls back to the eager step and no key is kept."""
+    import dataclasses
+
+    from repro_torch.models import graph_decode_step
+
+    model, params, cache, tok = _prefilled(cuda, "olmo-1b")
+
+    def reads_back(p, c, b):
+        out = model.decode_step(p, c, b)
+        out[0].sum().item()  # a device->host read: forbidden in a capture
+        return out
+    step = graph_decode_step(dataclasses.replace(model,
+                                                 decode_step=reads_back))
+    with pytest.raises(RuntimeError):
+        step(params, cache, {"token": tok, "pos": torch.full(
+            (2,), 20, dtype=torch.int32, device=cuda)})
+    assert not step.graphs
+    torch.cuda.synchronize()
