@@ -48,7 +48,13 @@ run with a nonzero exit and no result line.
    2-3 of head 1; bf16, C = 1 and 16, without and with the fused append):
    every copy bit for bit its head of the whole launch's arena, the output
    within kernel 1's tolerance of the plain version and bit for bit one
-   launch over the whole arena.
+   launch over the whole arena.  Kernel 3 where a shard's query slab
+   straddles KV-head groups (Hq=6, Hkv=3, D=128 over 2 shards: shard 0 on
+   KV heads 0-1, shard 1 on 1-2, each launch on its 3 query heads padded
+   with zero heads to 4; bf16, C = 1 and 16, without and with the fused
+   append): within kernel 1's tolerance of the plain version, every copy
+   bit for bit its heads of the whole launch's arena (the shared head's
+   two copies bitwise equal), the output bit for bit that launch's.
 3. Parity: reduced olmo-1b and olmoe-1b-7b engines on the card against the
    same engines on the CPU (plain versions), float32 weights: generated
    tokens must agree.  Reduced whisper-tiny, recurrentgemma-9b and
@@ -105,17 +111,25 @@ run with a nonzero exit and no result line.
    requests unless stated) served by ``DataParallelEngine`` with both
    replicas on this card.  Each path has its launch counts set to 0 just
    before it and held just after: the fused launch once per layer, shard
-   and engine step, the standalone append never.  (a) bf16, the main path:
-   in ``step()`` mode every step's launches per replica and exactly one
-   read per replica in a steady step (sync debug mode); then threaded
-   ``run()`` (the same tokens) and one engine on the same requests, both
-   timed, and both again with the eager step (the same tokens); the clock
-   mirror per replica.  Every replica serves through its step graphs, a
-   threaded round's all captured before its driver threads start.  (b) Failover: a warmed fleet with
-   ``auto_revive`` whose replica 0 is killed mid-decode; in float32 the
-   stitched tokens must equal one engine's, with one failure, one revival
-   and every request of the killed replica migrated; in bf16 the equal
-   tokens are printed.  (c) bf16 under ``ChaosConfig`` (denials, spurious
+   and engine step, the standalone append never.  Each replica steps on a
+   CUDA stream of its own.  (a) bf16, the main path: the replicas' two
+   streams distinct and not the default stream; in ``step()`` mode every
+   step's launches per replica and exactly one read per replica in a
+   steady step (sync debug mode); then threaded ``run()`` (the same
+   tokens), ``step()`` and one engine on the same requests, each timed on
+   its second drain (the first captures its graphs), and ``run()`` and
+   one engine again with the eager step (the same tokens); the fleet's
+   tokens/s over one engine's; the clock mirror per replica.
+   Every replica serves through its step graphs, a threaded round's all
+   captured before its driver threads start.  (b) Failover: a warmed
+   fleet with ``auto_revive`` whose replica 0 is killed mid-decode; in
+   float32 the stitched tokens must equal one engine's, with one failure,
+   one revival and every request of the killed replica migrated; in bf16
+   the equal tokens are printed.  Then in float32 replica 0 stalls: a 30 s
+   ``torch.cuda._sleep`` on its stream, its thread blocked in the step's
+   read; the watchdog (2 s) fails it over and revives it on a new stream,
+   and the fleet finishes every request, token-exact against one engine,
+   while the stalled stream still sleeps.  (c) bf16 under ``ChaosConfig`` (denials, spurious
    invalidations, delayed frees, unmap-under-reader): in ``step()`` mode
    one read per replica per steady step; then on 64 pages a replica with
    a kill, timed against the same fleet fault-free: 0 lost,
@@ -1236,6 +1250,91 @@ def gqa_slab_kernel(lens):
             log(f"{label}: against one launch over the whole arena bitwise; "
                 f"copies bitwise its heads; max err {err:.3g} against the "
                 f"plain version")
+    straddle_slab_kernel(lens)
+
+
+#: a query slab that straddles KV-head groups: Hq=6, Hkv=3 over 2 shards
+STRADDLE_HEADS = [(0, 2), (1, 3)]  # the KV heads of shard s
+STRADDLE_WINDOWS = [(0, 4), (1, 4)]  # its query slab in its launch's heads
+
+
+def straddle_slab_kernel(lens):
+    """Kernel 3 where a shard's query slab straddles KV-head groups
+    (``sharding/rules.py::query_window``): Hq=6, Hkv=3, D=128 over 2
+    shards of this card, shard 0 on KV heads 0-1 and shard 1 on heads 1-2,
+    each launch on its 3 query heads padded with zero heads to 4 (at
+    offsets 0 and 1), bf16, C = 1 and 16, without and with the fused
+    append.  Held to the plain version within kernel 1's tolerance; every
+    copy bit for bit its heads of one launch over the whole arena, so the
+    shared head's two copies are bitwise equal; and the output against
+    that launch's, bit for bit (printed and held: the padded launch's
+    query groups are the whole launch's, G=2)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.paged_decode import pad_window, window_heads
+
+    mesh = make_serving_mesh(2, ["cuda:0"] * 2)
+
+    def slabs(t):  # [.., Hkv, D] -> each shard's heads
+        return [t[:, :, a:b].contiguous() for a, b in STRADDLE_HEADS]
+
+    for C in (1, 16):
+        q, kp, vp, bt, ln, cl = attention_case(8, C, 6, 3, 128, 16, 512, 512,
+                                               torch.bfloat16, seed=17,
+                                               lens=lens)
+        cl.fill_(C)
+        qs = [pad_window(t.contiguous(), w)
+              for t, w in zip(q.chunk(2, dim=2), STRADDLE_WINDOWS)]
+        for fused in (False, True):
+            copies = [slabs(kp), slabs(vp)]
+            if fused:
+                kn, vn, ok = append_inputs((q, kp, vp, bt, ln, cl), seed=17,
+                                           deny=None)
+                full = [kp.clone(), vp.clone()]
+                want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln,
+                                                   cl, ok)
+                before = paged_attention_cuda.launches
+                outs = paged_attention_sharded(
+                    qs, *copies, bt, ln, cl, mesh=mesh, n_kv_heads=4,
+                    append=(slabs(kn), slabs(vn), ok))
+            else:
+                full = [kp, vp]
+                want = paged_attention_cuda(q, kp, vp, bt, ln, cl)
+                before = paged_attention_cuda.launches
+                outs = paged_attention_sharded(
+                    qs, *copies, bt, ln, cl, mesh=mesh, n_kv_heads=4)
+            torch.cuda.synchronize()
+            launches = paged_attention_cuda.launches - before
+            plain = paged_attention_plain(q, *full, bt, ln, cl)
+            label = (f"kernel 3 on straddling slabs (Hq=6, Hkv=3, 2 shards, "
+                     f"C={C}{', fused append' if fused else ''})")
+            check(launches == 2, f"{label}: {launches} launches, want one "
+                  f"per shard")
+            got = torch.cat([window_heads(o, w, 3) for o, w in
+                             zip(outs, STRADDLE_WINDOWS)], dim=2)
+            err = (got.float() - plain.float()).abs().max().item()
+            check(err <= 2e-2, f"{label}: max err {err} against the plain "
+                  f"version")
+            check(all(torch.equal(c[s], f[:, :, a:b])
+                      for c, f in zip(copies, full)
+                      for s, (a, b) in enumerate(STRADDLE_HEADS)),
+                  f"{label}: a shard's copy differs from its heads of the "
+                  f"arena")
+            check(all(torch.equal(c[0][:, :, 1], c[1][:, :, 0])
+                      for c in copies),
+                  f"{label}: the shared head's two copies differ")
+            off = (got.float() - want.float()).abs()
+            check(torch.equal(got, want),
+                  f"{label}: differs from one launch over the whole arena in "
+                  f"{int((off > 0).sum())} elements (max {off.max().item()})")
+            log(f"{label}: max err {err:.3g} against the plain version; "
+                f"copies bitwise their heads, the shared head's two copies "
+                f"bitwise equal; output bitwise one launch over the whole "
+                f"arena")
 
 
 # ---------------------------------------------------------------------------
@@ -1596,7 +1695,8 @@ def serve(eng, tag, per_step, *, rows=None, roofline=None):
     launches what an eager step does); a steady step (nothing queued,
     every row decoding, each two or more tokens from its end) makes
     exactly one device->host transfer (sync debug mode).  Steady steps
-    :data:`PROFILED_STEADY` run under torch.profiler: device ms and ops a
+    :data:`PROFILED_STEADY` run under torch.profiler (the steady step
+    before them its warm-up, traced and dropped): device ms and ops a
     step, and the fused launch's count a step, which must equal
     ``per_step``'s.  ``rows``: called with the requests a step before
     their last one, untimed (the K/V reads).  ``roofline``: a
@@ -1605,7 +1705,7 @@ def serve(eng, tag, per_step, *, rows=None, roofline=None):
     wall s (without ``rows``), mean steady wall ms (the unprofiled,
     uncounted steady steps), device ms and ops a step, and the cost."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.launch.op_analysis import analyze
     from repro_torch.serving.runner import ModelRunner
@@ -1634,10 +1734,16 @@ def serve(eng, tag, per_step, *, rows=None, roofline=None):
         if is_steady:
             count = roofline is not None and steady == 2
             profiled = steady in PROFILED_STEADY
+            # the profiler's warm-up step, traced and dropped: a trace
+            # begun just before a graph replay could miss its first kernels
+            warm = steady == PROFILED_STEADY[0] - 1
             if count:
                 work = roofline()
-            if profiled and prof is None:
-                prof = profile(activities=[ProfilerActivity.CUDA])
+            if warm:
+                prof = profile(activities=[ProfilerActivity.CUDA],
+                               schedule=schedule(
+                                   wait=0, warmup=1,
+                                   active=len(PROFILED_STEADY), repeat=1))
                 prof.__enter__()
             t1 = time.perf_counter()
             with warnings.catch_warnings(record=True) as caught:
@@ -1650,7 +1756,7 @@ def serve(eng, tag, per_step, *, rows=None, roofline=None):
                         eng.step()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
-            if not (count or profiled):
+            if not (count or profiled or warm):
                 walls.append(time.perf_counter() - t1)
             syncs = [w for w in caught
                      if "called a synchronizing" in str(w.message)]
@@ -1659,8 +1765,10 @@ def serve(eng, tag, per_step, *, rows=None, roofline=None):
                   f"{[str(w.message)[:80] for w in syncs]}")
             steady += 1
             transfers += len(syncs)
-            if prof is not None and steady == PROFILED_STEADY[-1] + 1:
+            if prof is not None:
                 torch.cuda.synchronize()
+                prof.step()
+            if prof is not None and steady == PROFILED_STEADY[-1] + 1:
                 prof.__exit__(None, None, None)
                 device = profiled_step(prof, len(PROFILED_STEADY))
                 prof = None
@@ -2040,6 +2148,24 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def warm_drain(server, prompts, drive, tag, layers, shards=1):
+    """``prompts`` (32 new tokens each) served twice on ``server`` (an
+    engine or a fleet) by ``drive()``: the first drain warms it (its step
+    graphs captured), the second is timed, its launch counts set to 0 just
+    before it and held just after.  Returns (the second drain's tokens,
+    its wall seconds, its steps)."""
+    for second in (False, True):
+        s0 = server.stats.steps
+        reqs = [server.submit(p, 32) for p in prompts]
+        if second:
+            reset_launches()
+        _, wall = timed(drive)
+        check(all(r.state == "finished" for r in reqs), f"{tag}: unfinished")
+    steps = server.stats.steps - s0
+    read_launches(tag, layers, steps, shards)
+    return [list(r.generated) for r in reqs], wall, steps
+
+
 def kill_after(n):
     """A step hook that raises on replica 0's ``n``-th driver iteration."""
     calls = [0]
@@ -2093,6 +2219,89 @@ def fleet_failover(cfg, params, prompts, tag, kill_at=20, **kw):
     return fleet, reqs, victims, wall, engines
 
 
+STALL_S = 30.0  # the stalled replica's sleep on its stream
+
+
+def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
+    """Failover on one card: a warmed float32 2-replica fleet under a 2 s
+    stall timeout with ``auto_revive``; at its ``stall_at``-th driver
+    iteration replica 0 enqueues a ``STALL_S`` sleep on its own stream and
+    its thread blocks in the step's read.  The watchdog abandons it,
+    migrates its requests and revives it on a new stream; the fleet must
+    finish every request, stitched tokens equal to one engine's
+    (``base``), while the stalled stream still sleeps (an event recorded
+    after the sleep has not completed).  Then the sleep is waited out and
+    the abandoned thread joined."""
+    import threading
+
+    import torch
+
+    from repro_torch.serving import DataParallelEngine, WatchdogConfig
+
+    tag = "fleet (b) float32 stall"
+    fleet = DataParallelEngine(
+        cfg, params, replicas=2, devices=ON_CARD,
+        watchdog=WatchdogConfig(stall_timeout=2.0, auto_revive=True),
+        **FLEET_KW)
+    warm = [fleet.submit(p[:16], 2) for p in prompts[:2]]
+    fleet.run()
+    check(all(r.state == "finished" for r in warm), f"{tag}: warm-up")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(STALL_S * 1e8 / (start.elapsed_time(end) / 1e3))
+    stalled, calls = {}, [0]
+
+    def stall(_eng):
+        calls[0] += 1
+        if calls[0] == stall_at:
+            stream = torch.cuda.current_stream()
+            torch.cuda._sleep(cycles)
+            stalled.update(stream=stream, done=stream.record_event(),
+                           thread=threading.current_thread())
+    old = fleet.streams[0]
+    reqs = [fleet.submit(p, 32) for p in prompts]
+    victims = [r for r in reqs if r._engine is fleet.replicas[0]]
+    fleet.step_hooks[0] = stall
+    t0 = time.perf_counter()
+    fleet.run()
+    wall = time.perf_counter() - t0
+    asleep = "done" in stalled and not stalled["done"].query()
+    try:
+        check(asleep, f"{tag}: the stalled stream woke before the fleet "
+              f"finished ({wall:.1f} s of a {STALL_S} s sleep)")
+        check(stalled["stream"] == old and fleet.streams[0] is not old,
+              f"{tag}: the stall was not on replica 0's stream, or the "
+              f"revived replica kept it")
+        st = fleet.stats
+        check(all(r.state == "finished" for r in reqs),
+              f"{tag}: a request was lost ({[r.state for r in reqs]})")
+        check(st.replica_failures == 1 and st.replica_revivals == 1,
+              f"{tag}: {st.replica_failures} failures, "
+              f"{st.replica_revivals} revivals, want 1 and 1")
+        check(st.requests_migrated >= len(victims) > 0,
+              f"{tag}: {st.requests_migrated} requests migrated, "
+              f"{len(victims)} were on the stalled replica")
+        check([r.output_tokens for r in reqs] == base,
+              f"{tag}: stitched tokens differ from one engine's "
+              f"({prefix_equal([r.output_tokens for r in reqs], base)})")
+    finally:
+        if "done" in stalled:
+            stalled["done"].synchronize()
+            stalled["thread"].join(timeout=120)
+    check(not stalled["thread"].is_alive(),
+          f"{tag}: the abandoned driver thread did not end")
+    mirrors_hold(tag, fleet.replicas)
+    log(f"{tag}: replica 0 slept {STALL_S} s on its stream at its "
+        f"{stall_at}th iteration; the fleet finished all {len(reqs)} "
+        f"requests in {wall:.2f} s, the sleep still running ({len(victims)} "
+        f"on the stalled replica, {fleet.stats.requests_migrated} migrated, "
+        f"1 failure, 1 revival on a new stream), stitched tokens == one "
+        f"engine's; on {name}")
+
+
 def fleet_phase(name):
     """Phase 5: full-width olmo-1b served by ``DataParallelEngine`` fleets
     on this card, then open-loop replay and the serving CLI (module
@@ -2114,18 +2323,15 @@ def fleet_phase(name):
 
     def single(params, tag, graphs=True, **where):
         """One engine (on this card, or as ``where`` says) serving the 16
-        requests (32 new tokens each), timed; through its step graphs, or
-        with the eager step."""
+        requests (32 new tokens each) on a warm engine, timed
+        (:func:`warm_drain`); through its step graphs, or with the eager
+        step."""
         eng = PagedServingEngine(cfg, params, **(where or {"device": "cuda"}),
                                  **FLEET_KW)
         eng.runner.graphs = graphs
-        reqs = [eng.submit(p, 32) for p in sixteen]
-        reset_launches()
-        _, wall = timed(eng.run)
-        read_launches(tag, L, eng.stats.steps, eng.tensor_parallel)
-        check(all(r.state == "finished" for r in reqs), f"{tag}: unfinished")
+        out = warm_drain(eng, sixteen, eng.run, tag, L, eng.tensor_parallel)
         mirrors_hold(tag, [eng])
-        return [list(r.generated) for r in reqs], wall, eng.stats.steps
+        return out
 
     # -- (a) bf16, the main path: 2 replicas on this card -------------------
     gc.collect()
@@ -2136,6 +2342,10 @@ def fleet_phase(name):
                                **FLEET_KW)
     check(len({e.params.embed["tok"].data_ptr() for e in fleet.replicas})
           == 1, "fleet (a): replicas on one card must share the weights")
+    handles = [st.cuda_stream for st in fleet.streams]
+    check(len(set(handles)) == 2 and torch.cuda.default_stream().cuda_stream
+          not in handles, f"fleet (a): the replicas' streams {handles} are "
+          f"not two of their own beside the default stream")
     reqs = [fleet.submit(p, 32) for p in sixteen]
     reset_launches()
     n, steady = fleet_steps(fleet, "fleet (a) step()", L)
@@ -2149,41 +2359,36 @@ def fleet_phase(name):
         f"replica steps {[e.stats.steps for e in fleet.replicas]}, "
         f"launches {json.dumps(launches)}")
     base, wall1, steps1 = single(params, "fleet (a) single engine")
+    # warm drains from here on (:func:`warm_drain`): the timed drain of
+    # a fleet or an engine holds no capture
     fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
                                **FLEET_KW)
-    reqs = [fleet.submit(p, 32) for p in sixteen]
-    reset_launches()
-    _, wall2 = timed(fleet.run)
-    run_steps = fleet.stats.steps
-    launches = read_launches("fleet (a) run()", L, run_steps)
-    check(all(r.state == "finished" for r in reqs), "fleet (a): unfinished")
+    tokens, wall2, run_steps = warm_drain(fleet, sixteen, fleet.run,
+                                          "fleet (a) run()", L)
+    launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
     mirrors_hold("fleet (a) run()", fleet.replicas)
-    check([list(r.generated) for r in reqs] == step_tokens,
+    check(tokens == step_tokens,
           "fleet (a): threaded run() and step() generate different tokens")
     # the same drain from one thread in step() mode, timed: what the two
     # driver threads cost beyond it
     fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
                                **FLEET_KW)
-    reqs = [fleet.submit(p, 32) for p in sixteen]
 
     def drain():
         while not fleet.drained():
             fleet.step()
-    reset_launches()
-    _, wall3 = timed(drain)
-    read_launches("fleet (a) timed step()", L, fleet.stats.steps)
-    check([list(r.generated) for r in reqs] == step_tokens,
+    tokens, wall3, _ = warm_drain(fleet, sixteen, drain,
+                                  "fleet (a) timed step()", L)
+    check(tokens == step_tokens,
           "fleet (a): two step() drains generate different tokens")
     # the same fleet and engine on the eager step: what the graphs gain
     fleet = DataParallelEngine(cfg, params, replicas=2, devices=ON_CARD,
                                **FLEET_KW)
     for e in fleet.replicas:
         e.runner.graphs = False
-    reqs = [fleet.submit(p, 32) for p in sixteen]
-    reset_launches()
-    _, wall2e = timed(fleet.run)
-    read_launches("fleet (a) eager run()", L, fleet.stats.steps)
-    check([list(r.generated) for r in reqs] == step_tokens,
+    tokens, wall2e, _ = warm_drain(fleet, sixteen, fleet.run,
+                                   "fleet (a) eager run()", L)
+    check(tokens == step_tokens,
           "fleet (a): the eager run() and the graphs' step() generate "
           "different tokens")
     base_e, wall1e, _ = single(params, "fleet (a) eager single engine",
@@ -2193,7 +2398,8 @@ def fleet_phase(name):
     gen = 16 * 32
     log(f"fleet (a) bf16 run(): 2 driver threads, {run_steps} "
         f"replica steps, launches {json.dumps(launches)}; generated "
-        f"tokens/s on the same 16 requests: fleet run() {gen / wall2:.1f}, "
+        f"tokens/s on the same 16 requests, each server's second drain: "
+        f"fleet run() {gen / wall2:.1f}, "
         f"fleet step() from one thread {gen / wall3:.1f}, one engine "
         f"{gen / wall1:.1f} ({steps1} steps; run() {wall2 / wall1:.3f}x and "
         f"step() {wall3 / wall1:.3f}x its wall time); on the eager step: "
@@ -2201,6 +2407,10 @@ def fleet_phase(name):
         f"(run() {wall2e / wall1e:.3f}x its wall time); graphs against "
         f"eager: one engine {wall1e / wall1:.3f}x, fleet run() "
         f"{wall2e / wall2:.3f}x the tokens/s; on {name}")
+    log(f"fleet (a) bf16, each replica on a stream of its own: fleet "
+        f"tokens/s over one engine's: run() {wall1 / wall2:.3f}x, step() "
+        f"{wall1 / wall3:.3f}x; on the eager step run() "
+        f"{wall1e / wall2e:.3f}x; on {name}")
     same, total = prefix_equal(step_tokens, base)
     log(f"fleet (a): {same} of {total} bf16 fleet tokens equal the single "
         f"engine's before each request's first difference")
@@ -2297,6 +2507,7 @@ def fleet_phase(name):
         f"iteration, {len(victims)} requests migrated and re-prefilled, "
         f"1 failure, 1 revival, stitched tokens == one engine's "
         f"({sum(map(len, base32))} tokens)")
+    fleet_stall(cfg, params, sixteen, base32, name)
     # the 2D fleet against one TP=2 engine: the fleet layer must change no
     # token.  TP=2 against TP=1 is the engine phase's check; over these 16
     # requests float32 TP=2 can meet a near tie against TP=1 (the bf16

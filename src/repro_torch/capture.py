@@ -10,6 +10,15 @@ run at once.  :func:`record_graph` records a body without running it;
 the kernel launches the body makes are tallied, not counted, and each
 replay adds the tally (``kernels/build.py::count_replay``).  A capture
 that fails raises: nothing falls back to the eager step.
+
+A capture waits for nothing but its own stream (no card-wide
+synchronise), so a fleet replica on a card can capture (revived, or over
+a wider prompt buffer) while another replica's stream is still busy,
+even stalled.  Every capture runs in ``thread_local`` mode, so the calls
+of other threads (another replica's driver, or an abandoned one waking
+from a stall) cannot invalidate it.  A capture that fails leaves the
+caller's current stream as it was (``torch.cuda.graph`` leaves its
+capture stream current when the capture fails).
 """
 
 from __future__ import annotations
@@ -49,7 +58,10 @@ def record_graph(body, stream, pool, generator=None):
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
-    with recording_launches() as tally:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+    with recording_launches() as tally, torch.cuda.stream(stream):
+        graph.capture_begin(pool, capture_error_mode="thread_local")
+        try:
             body()
+        finally:
+            graph.capture_end()
     return graph, tally

@@ -29,12 +29,15 @@ followed by :func:`paged_attention_plain`.
 ``paged_attention_sharded`` (tensor parallelism): this kernel launched once
 per shard on the shard's slab of KV heads — or, over a replicated
 multi-query arena, on the shard's query slab and its own copy of the one
-KV head — with the fused append when it is given one; its plain version
-:func:`paged_attention_sharded_plain` runs the plain versions per shard.
+KV head, or on the heads a straddling query slab reads, the slab padded
+by its caller — with the fused append when it is given one; its plain
+version :func:`paged_attention_sharded_plain` runs the plain versions per
+shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -117,8 +120,8 @@ def _launcher():
 
 
 _tickets: dict = {}
-_retired: list = []  # grown-out buffers: a captured graph may still read one
 _tickets_lock = threading.Lock()
+_capturing = threading.local()  # .tickets: the buffer captured launches take
 
 
 def ticket_count(B: int, C: int, Hq: int, Hkv: int) -> int:
@@ -128,42 +131,56 @@ def ticket_count(B: int, C: int, Hq: int, Hkv: int) -> int:
 
 
 def _ticket_buffer(device, stream: int, n: int):
-    """The zeroed int32 ticket counters of the split merge, one buffer per
-    (device, stream): the last block of each (row, head) resets its ticket,
-    so the buffer is zero again whenever a launch has ended.  Launches on
-    one stream run in order, so every thread that launches on it (a
-    fleet's driver threads on one card's default stream) may share the
-    buffer; the get-or-grow holds a lock, so two threads that grow it at
-    once keep one buffer.  A buffer that grows is kept alive, since a CUDA
-    graph captured on the stream reads the old one at every replay; a
-    capture cannot grow it (the new buffer would lie in the graph's memory
-    pool, where the pool's other graphs may overwrite it):
-    :func:`reserve_tickets` first."""
+    """The zeroed int32 ticket counters of the split merge: the last block
+    of each (row, head) resets its ticket, so a buffer is zero again
+    whenever a launch has ended.  An eager launch takes the buffer of its
+    (device, stream): launches on one stream run in order, so every thread
+    that launches on it may share the buffer; the get-or-grow holds a
+    lock, so two threads that grow it at once keep one buffer.  A launch
+    being captured takes the buffer its graph's owner reserved
+    (:func:`reserve_tickets`, :func:`capture_tickets`): a graph replays on
+    whatever stream its owner steps on, so two owners' graphs may run at
+    once, and a buffer keyed by the capture stream could be shared by two
+    owners whose capture streams are one (PyTorch hands streams out from a
+    pool)."""
+    if (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        buf = getattr(_capturing, "tickets", None)
+        if buf is None or buf.numel() < n or buf.device != device:
+            raise RuntimeError(
+                "paged_attention_cuda: a captured launch needs its graph "
+                "owner's ticket buffer, reserved before capture "
+                "(reserve_tickets, capture_tickets)")
+        return buf
     with _tickets_lock:
         buf = _tickets.get((device, stream))
         if buf is None or buf.numel() < n:
-            if (torch.device(device).type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
-                raise RuntimeError(
-                    "paged_attention_cuda: the capture stream's ticket "
-                    "buffer was not reserved before capture "
-                    "(reserve_tickets)")
-            if buf is not None:
-                _retired.append(buf)
             buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
             _tickets[(device, stream)] = buf
         return buf
 
 
-def reserve_tickets(device, stream: int, n: int):
-    """Make ``stream``'s ticket buffer on ``device`` hold ``n`` counters
-    (:func:`ticket_count`) before a graph is captured on it, so that the
-    buffer is ordinary device memory outside the graph's pool; returns
-    it."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return _ticket_buffer(device, stream, n)
+def reserve_tickets(device, n: int, buf=None):
+    """A zeroed ticket buffer of at least ``n`` counters
+    (:func:`ticket_count`) on ``device``, made outside any capture so that
+    it is ordinary device memory, not a graph pool's: ``buf`` itself where
+    it is large enough, else a new one (graphs captured over ``buf`` still
+    read it: its owner keeps it)."""
+    if buf is not None and buf.numel() >= n:
+        return buf
+    return torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def capture_tickets(buf):
+    """Launches this thread captures in the block take their split-merge
+    tickets from ``buf`` (:func:`reserve_tickets`)."""
+    prev = getattr(_capturing, "tickets", None)
+    _capturing.tickets = buf
+    try:
+        yield
+    finally:
+        _capturing.tickets = prev
 
 
 def _check(cond: bool, msg: str, name: str = "paged_attention_cuda") -> None:
@@ -311,15 +328,19 @@ def _shard_args(qs, ks, vs, block_tables, lengths, chunk_lens, mesh,
     """Per shard: (q, k, v, block_tables, lengths, chunk_lens) and, with
     ``append`` = (k_news, v_news, write_ok), (k_new, v_new, write_ok)."""
     tp = mesh.tp
-    if n_kv_heads % tp != 0:
-        raise ValueError(f"n_kv_heads={n_kv_heads} not divisible by tp={tp}")
     if not len(qs) == len(ks) == len(vs) == tp:
         raise ValueError(f"paged_attention_sharded: want one q, k and v slab "
                          f"per shard ({tp}), got {len(qs)}, {len(ks)}, "
                          f"{len(vs)}")
-    if any(k.shape[2] != n_kv_heads // tp for k in ks):
-        raise ValueError(f"paged_attention_sharded: each k/v slab must hold "
-                         f"n_kv_heads // tp = {n_kv_heads // tp} heads")
+    hs = [k.shape[2] for k in ks]
+    if len(set(hs)) == 1 and n_kv_heads % tp != 0:
+        raise ValueError(f"n_kv_heads={n_kv_heads} not divisible by tp={tp}")
+    if sum(hs) != n_kv_heads or any(q.shape[2] % h
+                                    for q, h in zip(qs, hs)):
+        raise ValueError(f"paged_attention_sharded: want k/v slabs of "
+                         f"n_kv_heads={n_kv_heads} heads together, each q "
+                         f"slab whole query groups of its slab's heads; got "
+                         f"{[q.shape[2] for q in qs]} query heads over {hs}")
     args = zip(qs, ks, vs, *(_replicated(t, mesh)
                              for t in (block_tables, lengths, chunk_lens)))
     if append is None:
@@ -359,17 +380,21 @@ def paged_attention_sharded(qs, ks, vs, block_tables, lengths, chunk_lens, *,
     LOCAL head slab, with no collective (the caller sums the row-parallel
     ``wo`` products of the outputs).
 
-    qs: per-shard q slabs [B, C, Hq/T, D]; ks/vs: per-shard arena slabs
-    [P, page, Hkv/T, D], shard s's on ``mesh.devices[s]``; block_tables,
-    lengths and chunk_lens: one tensor (copied to each shard's device
-    without a host sync) or one per shard.  ``n_kv_heads`` counts the
-    slabs' heads together and T must divide it; over a replicated
-    multi-query arena (each ks/vs entry a whole one-head copy) it is T.
-    ``append`` = (k_news, v_news, write_ok):
-    per-shard new K/V slabs [B, C, Hkv/T, D] and one write_ok (or one per
-    shard) — each shard's launch then appends to its own slab
-    (:func:`paged_attention_append_cuda`).  Returns the T per-shard
-    outputs.  Counts one launch per shard."""
+    qs: per-shard q slabs [B, C, hq, D]; ks/vs: per-shard arena slabs
+    [P, page, h, D], shard s's on ``mesh.devices[s]``, each q slab whole
+    query groups of its slab's h heads (query head j reads KV head
+    ``j // (hq/h)``); block_tables, lengths and chunk_lens: one tensor
+    (copied to each shard's device without a host sync) or one per shard.
+    ``n_kv_heads`` counts the slabs' heads together: Hkv where T divides
+    it (every slab Hkv/T heads, T must divide it when the slabs are
+    equal), T over a replicated multi-query arena (each ks/vs entry a
+    whole one-head copy), and more than Hkv where neighbouring slabs hold
+    copies of a head a straddling query slab shares (the caller pads such
+    a slab to whole groups: ``serving/paged_decode.py::pad_window``).
+    ``append`` = (k_news, v_news, write_ok): per-shard new K/V slabs [B,
+    C, h, D] and one write_ok (or one per shard) — each shard's launch
+    then appends to its own slab (:func:`paged_attention_append_cuda`).
+    Returns the T per-shard outputs.  Counts one launch per shard."""
     outs = []
     for (q, k, v, bt, ln, cl), new in _shard_args(
             qs, ks, vs, block_tables, lengths, chunk_lens, mesh, n_kv_heads,

@@ -7,8 +7,8 @@ with ``device=`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
 ``sharding/rules.py`` (the experts as ``REPRO_MOE_SHARD`` names, read
 here, as the reference reads it where it cuts its weights), keeps one
 contiguous KV slab per shard — Hkv/T heads, or where T does not divide
-Hkv the one head the shard's query slab reads: for multi-query attention
-a whole copy of the arena per shard, the reference's replicated layout —
+Hkv the heads the shard's query slab reads: for multi-query attention a
+whole copy of the arena per shard, the reference's replicated layout —
 and keeps the pool and per-slot state once on the first device (the
 reference replicates them over its mesh).
 Wiring and delegation over three layers with explicit contracts:
@@ -39,7 +39,7 @@ from repro_torch.core.vm import ReleaseStrategy
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import DecoderLM
-from repro_torch.sharding.rules import (kv_shards, kv_split, moe_shard_mode,
+from repro_torch.sharding.rules import (kv_join, kv_split, moe_shard_mode,
                                         param_shards)
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
@@ -147,8 +147,8 @@ class PagedServingEngine:
             page_size=page_size, stats=self.stats, device=self.device,
             mesh=self.mesh, kv_replicated=(
                 self.mesh is not None and not kv_split(cfg, self.mesh.tp)),
-            kv_shards=(kv_shards(cfg, self.mesh.tp)
-                       if self.mesh is not None else None))
+            kv_join=(kv_join(cfg, self.mesh.tp)
+                     if self.mesh is not None else None))
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,

@@ -6,7 +6,7 @@ by plain tensor writes where the reference runs donated jitted installs.
 Under tensor parallelism (``mesh=``) the per-slot arrays live once, on the
 mesh's lead device (the reference replicates them), and ``kv`` is the list
 of per-shard arena slabs (where the mesh does not divide the KV heads,
-each the head its shard's query slab reads: shards reading one head hold
+each the heads its shard's query slab reads: shards reading one head hold
 equal copies); :meth:`KVCacheManager.gather_kv` joins them.
 
 The middle layer of the serving stack (ARCHITECTURE.md):
@@ -80,7 +80,7 @@ class KVCacheManager:
     def __init__(self, allocator: Allocator, *, kv, max_batch: int,
                  max_pages_per_seq: int, page_size: int, stats: EngineStats,
                  device=None, mesh=None, kv_replicated: bool = False,
-                 kv_shards=None):
+                 kv_join=None):
         self.allocator = allocator
         self.kv = kv
         self.stats = stats
@@ -91,10 +91,11 @@ class KVCacheManager:
         #: under a mesh: the KV heads are not split evenly (shards share
         #: heads; multi-query: every shard holds a whole copy)
         self.kv_replicated = kv_replicated
-        #: under a mesh: the shards whose slabs, joined, are the whole arena
-        self.kv_shards = (tuple(kv_shards) if kv_shards is not None
-                          else tuple(range(mesh.tp)) if mesh is not None
-                          else None)
+        #: under a mesh: (shard, first local head) of the slabs that, joined
+        #: in order, are the whole arena (``sharding/rules.py::kv_join``)
+        self.kv_join = (tuple(kv_join) if kv_join is not None
+                        else tuple((s, 0) for s in range(mesh.tp))
+                        if mesh is not None else None)
         self.device = mesh.lead if mesh is not None else resolve_device(device)
         B, M = max_batch, max_pages_per_seq
         dev = self.device
@@ -126,16 +127,16 @@ class KVCacheManager:
 
     def gather_kv(self) -> dict:
         """The whole arena {'k','v': [L, P, page, Hkv, D]} on the lead
-        device: the slabs of :attr:`kv_shards` joined on the KV-head axis
-        (tests and the smoke script; never on the serving path).  Without a
-        mesh, the arena itself; over a multi-query arena, the lead shard's
-        copy."""
+        device: the slabs of :attr:`kv_join` joined on the KV-head axis,
+        each from its first head no earlier slab holds (tests and the smoke
+        script; never on the serving path).  Without a mesh, the arena
+        itself; over a multi-query arena, the lead shard's copy."""
         if self.mesh is None:
             return self.kv
-        if len(self.kv_shards) == 1:
+        if len(self.kv_join) == 1:
             return {n: self.kv[0][n] for n in ("k", "v")}
-        return {n: torch.cat([self.kv[s][n].to(self.device)
-                              for s in self.kv_shards], dim=3)
+        return {n: torch.cat([self.kv[s][n][:, :, :, lo:].to(self.device)
+                              for s, lo in self.kv_join], dim=3)
                 for n in ("k", "v")}
 
     def install_state(self, st: DeviceStepState) -> None:

@@ -20,9 +20,12 @@ Tensor parallelism (``mesh=``, a :class:`repro_torch.launch.mesh.ServingMesh`
 of T shard devices): the KV arena is one contiguous ``[L, P, page, h, D]``
 slab per shard holding the h KV heads its query slab reads
 (``sharding/rules.py::kv_heads``: Hkv/T heads where T divides Hkv; else
-the one head its query heads share — a whole copy of a multi-query arena,
-the reference's replicated layout — and the shards reading one head
-compute the same K/V and append them to their own copies), and the model
+the heads its query heads read — the one they share, a whole copy of a
+multi-query arena in the reference's replicated layout, or the heads of a
+slab that straddles KV-head groups, the slab padded here with zero heads
+to whole groups for its launch, :func:`pad_window` — and the shards
+reading one head compute the same K/V and append them to their own
+copies), and the model
 one ``DecoderLM`` of weight slices per shard (``sharding/rules.py``).  The pool, the grant, COW
 planning, token routing, selection and OA validation run once, on the lead
 device — the reference replicates them and every shard computes the same
@@ -68,7 +71,8 @@ from repro_torch.models.transformer import (DECODER_FAMILIES, embed_tokens,
                                             unembed)
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.sharding.rules import (ROW_BIASES, check_heads, kv_heads,
-                                        lm_head_split, mlp_split, moe_axis)
+                                        lm_head_split, mlp_split, moe_axis,
+                                        query_window)
 
 
 def kv_storage_init(cfg, num_pages: int, page_size: int,
@@ -78,7 +82,7 @@ def kv_storage_init(cfg, num_pages: int, page_size: int,
 
     With ``mesh``: a list of T contiguous slabs [L, P, page, h, D], shard
     s's holding its KV heads (``sharding.rules.kv_heads``: ``[s·Hkv/T,
-    (s+1)·Hkv/T)`` where T divides Hkv, the one its query slab reads
+    (s+1)·Hkv/T)`` where T divides Hkv, those its query slab reads
     otherwise) of every page on ``mesh.devices[s]``.  Heads the mesh cannot
     serve raise ``ValueError`` (``sharding.rules.check_heads``)."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -103,14 +107,40 @@ def max_chunk_pages(chunk_size: int, page_size: int) -> int:
 
 
 @functools.cache
-def _local_cfg(cfg, tp: int):
-    """The config one of ``tp`` shards computes its heads with: its query
-    heads, and its KV heads (``sharding.rules.kv_heads``; the same count on
-    every shard)."""
+def _local_cfg(cfg, tp: int, s: int = 0):
+    """The config shard ``s`` of ``tp`` computes its heads with: its query
+    heads, and its KV heads (``sharding.rules.kv_heads``)."""
     if tp == 1:
         return cfg
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=kv_heads(cfg, tp, 0)[1])
+                               n_kv_heads=kv_heads(cfg, tp, s)[1])
+
+
+def launch_heads(cfg, tp: int) -> list[tuple[int, int]]:
+    """Per shard: (query heads, KV heads) of its attention launch — the
+    query window's width (``sharding.rules.query_window``) over the
+    shard's KV heads."""
+    return [(query_window(cfg, tp, s)[1], kv_heads(cfg, tp, s)[1])
+            for s in range(tp)]
+
+
+def pad_window(q, window):
+    """q [B, C, h, D] as its shard's kernel launch takes it: padded with
+    zero heads to the ``window`` = (offset, width) of
+    ``sharding.rules.query_window``, its own heads at the offset; q itself
+    where the window is q's heads."""
+    off, width = window
+    h = q.shape[2]
+    if width == h:
+        return q
+    return torch.nn.functional.pad(q, (0, 0, off, width - off - h))
+
+
+def window_heads(out, window, h: int):
+    """The h heads of a padded launch's output ``out`` [B, C, width, D]
+    that belong to its query slab (:func:`pad_window`)."""
+    off, width = window
+    return out if width == h else out[:, :, off:off + h]
 
 
 def _layout(model, kv, mesh, dev):
@@ -191,7 +221,8 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     dev = tokens.device
     shards, kvs, mesh = _layout(model, kv, mesh, dev)
     devs = mesh.devices
-    lcfg = _local_cfg(cfg, mesh.tp)
+    lcfgs = [_local_cfg(cfg, mesh.tp, s) for s in range(mesh.tp)]
+    windows = [query_window(cfg, mesh.tp, s) for s in range(mesh.tp)]
     positions = lengths.to(torch.int64)[:, None] + torch.arange(
         C, device=dev)[None, :]
     x = embed_tokens(cfg, shards[0].embed, tokens.to(torch.int64), positions)
@@ -207,9 +238,10 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
         qs, kns, vns, slabs = [], [], [], []
         for s, blk in enumerate(blks):
             kl, vl = kvs[s]["k"][layer], kvs[s]["v"][layer]  # [P,page,Hkv,D]
-            q, k, v = attention_qkv(lcfg, h.to(devs[s], non_blocking=True),
+            q, k, v = attention_qkv(lcfgs[s],
+                                    h.to(devs[s], non_blocking=True),
                                     blk.attn, poss[s])
-            qs.append(q)
+            qs.append(pad_window(q, windows[s]))
             kns.append(k.to(kl.dtype).contiguous())
             vns.append(v.to(vl.dtype).contiguous())
             slabs.append({"k": kl, "v": vl})
@@ -219,8 +251,10 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
             qs, slabs, bts, tots, mesh=mesh, chunk_lens=nns,
             pages_per_compute_block=pages_per_compute_block,
             append=(kns, vns, oks))
-        x = x + _reduce([a.reshape(B, C, -1) @ blk.attn["wo"]
-                         for a, blk in zip(atts, blks)], dev)
+        x = x + _reduce([window_heads(a, w, lc.n_heads).reshape(B, C, -1)
+                         @ blk.attn["wo"]
+                         for a, w, lc, blk in zip(atts, windows, lcfgs, blks)],
+                        dev)
         h2 = apply_norm(cfg, x, blks[0].ln2)
         x = x + _ffn(cfg, blks, mesh, h2, dev)
     return apply_norm(cfg, x, shards[0].final_norm), kv

@@ -27,13 +27,34 @@ Two drive modes:
 - :meth:`DataParallelEngine.run` — one driver thread per replica running
   its own admit/step/maintain loop.  Python releases the GIL while a
   thread blocks on its replica's read back, and on a card while it
-  replays a step graph, so N replicas keep N devices busy.  Each thread
-  makes its replica's device current (the current CUDA device is per
-  thread); replicas on one card share its default stream, where their
-  work runs in the order it was enqueued.  Every graph a round can replay
-  is captured before its threads start (``PagedServingEngine.
-  _prepare_graphs``): a capture forbids other threads' unsafe CUDA calls,
-  and a graph found missing in a thread raises.
+  replays a step graph, so N replicas keep N devices busy.  Every graph a
+  round can replay is captured before its threads start
+  (``PagedServingEngine._prepare_graphs``), and a graph found missing in
+  a thread raises.
+
+**A stream a replica.**  The reference places each replica on a device of
+its own; the port's counterpart on a card is a ``torch.cuda.Stream`` of
+its own (:attr:`DataParallelEngine.streams`, on the replica's lead
+device), made with its engine and made anew when it is revived.  Every
+fleet call that touches a replica's device — its engine's construction,
+``submit``, each drive mode's admit/step/maintain, graph capture,
+``shrink`` — runs with that device and stream current (``_on``), so a
+replica's one read per step (``runner.collect``: a copy into pinned
+memory and a wait for its stream, which holds up no other thread's CUDA
+calls) waits for its own work alone, replicas' steps overlap on one card,
+and a replica stalled in a device call stalls no other's read.  The streams are ordered
+against the caller's: on entry a replica's stream waits for the work the
+caller's current stream holds, on exit the caller's waits for the
+replica's — so whatever the caller enqueues after a fleet call (a test's
+read of the arena, another fleet call) follows the replicas' work.
+Tensor lifetimes need no ``record_stream``: an engine is made on its
+replica's stream, so every tensor it makes — the arena, the per-slot
+arrays, each pool an allocator call replaces, uploads, deferred chaos
+frees — lies in that stream's share of the caching allocator; a block the
+caller frees on its own stream is handed to replica work only after an
+entry, which waits for the caller's stream.  The weights are read only.
+On the CPU a replica has no stream and all of this is a no-op; a
+``PagedServingEngine`` outside a fleet steps on the current stream.
 
 **Self-healing.**  With a :class:`WatchdogConfig`, :meth:`run` becomes a
 supervised loop: every driver thread updates a per-replica heartbeat each
@@ -58,18 +79,27 @@ import time
 
 import torch
 
+from repro_torch.device import resolve_device
 from .engine import PagedServingEngine
 from .scheduler import Request
 from .stats import EngineStats, aggregate_stats
 
 
-def _current(device):
-    """A context that makes ``device`` the thread's current CUDA device (a
-    no-op for the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
+def _stream_for(device, taken):
+    """A CUDA stream of ``device`` for a replica, none of the ``taken``
+    handles (None on the CPU).  PyTorch hands its streams out in turn from
+    a pool, so a new ``torch.cuda.Stream`` can be one already in use: a
+    stalled replica's, which the revived one must not wait behind."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return None
+    taken = set(taken) | {torch.cuda.current_stream(device).cuda_stream}
+    for _ in range(64):
+        stream = torch.cuda.Stream(device)
+        if stream.cuda_stream not in taken:
+            return stream
+    raise RuntimeError(f"no CUDA stream of {device} is free of the fleet's "
+                       f"other replicas")
 
 
 class ReplicaStalled(RuntimeError):
@@ -129,11 +159,9 @@ class DataParallelEngine:
                 f" devices; have {len(devices)}")
         self._engine_kwargs = dict(engine_kwargs)
         self.watchdog = watchdog
-        self.replicas = [
-            PagedServingEngine(cfg, params, **self._placement_for(i),
-                               **self._engine_kwargs_for(i))
-            for i in range(replicas)
-        ]
+        #: each replica's CUDA stream (module docstring; None on the CPU)
+        self.streams: list = [None] * replicas
+        self.replicas = [self._make(i) for i in range(replicas)]
         self.alive = [True] * replicas
         # per-replica callable(engine) invoked once per driver iteration —
         # the chaos tests' injection point for kills and stalls
@@ -150,6 +178,60 @@ class DataParallelEngine:
             return {"device": self._devices[i % len(self._devices)]}
         return {"tensor_parallel": tp,
                 "devices": self._devices[i * tp:(i + 1) * tp]}
+
+    def _lead(self, i: int):
+        """Replica ``i``'s lead device (where its stream lives)."""
+        place = self._placement_for(i)
+        return place["device"] if "device" in place else place["devices"][0]
+
+    def _make(self, i: int) -> PagedServingEngine:
+        """A new engine for slot ``i``, made on a new stream of its own
+        (:attr:`streams` [i])."""
+        cfg, params = self._ctor
+        self.streams[i] = _stream_for(
+            self._lead(i),
+            [s.cuda_stream for s in self.streams if s is not None])
+        with self._on(i):
+            return PagedServingEngine(cfg, params, **self._placement_for(i),
+                                      **self._engine_kwargs_for(i))
+
+    @contextlib.contextmanager
+    def _ordered(self, idx):
+        """Replicas ``idx``'s streams after the work the caller's current
+        streams hold now, and the caller's after theirs when the block
+        ends."""
+        pairs = []
+        for i in idx:
+            stream = self.streams[i]
+            if stream is not None:
+                cur = torch.cuda.current_stream(stream.device)
+                stream.wait_stream(cur)
+                pairs.append((cur, stream))
+        try:
+            yield
+        finally:
+            for cur, stream in pairs:
+                cur.wait_stream(stream)
+
+    def _current(self, i: int):
+        """A context that makes replica ``i``'s device and stream the
+        thread's current ones (the current CUDA device and stream are per
+        thread, and the kernels size themselves for the device); a no-op
+        on the CPU."""
+        stream = self.streams[i]
+        if stream is None:
+            return contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(stream.device))
+        ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
+
+    @contextlib.contextmanager
+    def _on(self, i: int):
+        """Run the block on replica ``i``'s device and stream, ordered
+        against the caller's stream (module docstring)."""
+        with self._ordered([i]), self._current(i):
+            yield
 
     def _engine_kwargs_for(self, i: int) -> dict:
         """Per-replica engine kwargs: a shared chaos config gets its seed
@@ -196,25 +278,37 @@ class DataParallelEngine:
         handle (its ``_engine`` back-reference names the owning replica,
         which is how the tests pin no-cross-pool-leakage).  ``cls`` and
         ``block`` pass through to the replica's bounded-queue admission."""
-        return self.replicas[self.route(prompt)].submit(
-            prompt, max_new_tokens, deadline=deadline, cls=cls, block=block)
+        i = self.route(prompt)
+        with self._on(i):
+            return self.replicas[i].submit(
+                prompt, max_new_tokens, deadline=deadline, cls=cls,
+                block=block)
 
     # -- stepping ------------------------------------------------------------
 
     def step(self) -> None:
         """One interleaved step across all live replicas: admit everywhere,
-        ENQUEUE every replica's fused step, then collect each single read
-        back — per-replica sync-freedom is preserved (still one transfer
-        per replica per step, asserted in tests/test_torch_parallel.py)
-        and device work overlaps across pools while the host loops."""
-        live = [e for i, e in enumerate(self.replicas) if self.alive[i]]
-        for eng in live:
-            eng.scheduler.admit()
-        handles = [eng.launch_step() for eng in live]
-        for eng, handle in zip(live, handles):
-            eng.collect_step(handle)
-        for eng in live:
-            eng.scheduler.maintain()
+        ENQUEUE every replica's fused step, each on its own stream, then
+        collect each single read back — per-replica sync-freedom is
+        preserved (still one transfer per replica per step, asserted in
+        tests/test_torch_parallel.py), a read waits for its replica's
+        stream alone, and device work overlaps across pools while the host
+        loops."""
+        live = [i for i in range(len(self.replicas)) if self.alive[i]]
+        with self._ordered(live):
+            for i in live:
+                with self._current(i):
+                    self.replicas[i].scheduler.admit()
+            handles = []
+            for i in live:
+                with self._current(i):
+                    handles.append(self.replicas[i].launch_step())
+            for i, handle in zip(live, handles):
+                with self._current(i):
+                    self.replicas[i].collect_step(handle)
+            for i in live:
+                with self._current(i):
+                    self.replicas[i].scheduler.maintain()
 
     def drained(self) -> bool:
         """True when no live replica holds queued or running work."""
@@ -257,7 +351,7 @@ class DataParallelEngine:
         runners = []
         for i in workers:  # every graph of the round, before the threads
             eng = self.replicas[i]
-            with _current(eng.device):
+            with self._on(i):
                 eng._prepare_graphs()
             runners.append(eng.runner)
         for r in runners:
@@ -326,12 +420,11 @@ class DataParallelEngine:
         admit/step/maintain drain loop, with a heartbeat write, the chaos
         step hook and a safe-point stop check at the top of every
         iteration.  Exceptions land in ``errors`` for the supervisor.  The
-        replica's device is made current for the thread (CUDA's current
-        device is per thread, and the kernels size themselves for it)."""
+        loop runs on the replica's device and stream (:meth:`_on`)."""
         eng = self.replicas[i]
         t0 = time.time()
         try:
-            with _current(eng.device):
+            with self._on(i):
                 for _ in range(max_steps):
                     hb[i] = time.monotonic()
                     hook = self.step_hooks[i]
@@ -404,15 +497,13 @@ class DataParallelEngine:
 
     def revive(self, i: int) -> PagedServingEngine:
         """Replace dead replica ``i`` with a fresh engine on the same
-        device and mark it live again.  The kernels are loaded once per
-        process, so this builds nothing; the old engine's counters are
-        retired into the fleet aggregate."""
+        device, on a new stream (the old one may still hold the dead
+        replica's stalled work), and mark it live again.  The kernels are
+        loaded once per process, so this builds nothing; the old engine's
+        counters are retired into the fleet aggregate."""
         assert not self.alive[i], "revive() is for dead replicas"
-        cfg, params = self._ctor
         self._retired.append(self.replicas[i].stats)
-        self.replicas[i] = PagedServingEngine(
-            cfg, params, **self._placement_for(i),
-            **self._engine_kwargs_for(i))
+        self.replicas[i] = self._make(i)
         self.alive[i] = True
         self.replicas[i].stats.record_revival()
         return self.replicas[i]
@@ -437,8 +528,12 @@ class DataParallelEngine:
     def shrink(self, keep_superblocks: int | None = None) -> int:
         """Per-replica physical release: every pool parks its own EMPTY
         superblocks above its own floor; returns the fleet total."""
-        return sum(e.shrink(keep_superblocks)
-                   for i, e in enumerate(self.replicas) if self.alive[i])
+        total = 0
+        for i, e in enumerate(self.replicas):
+            if self.alive[i]:
+                with self._on(i):
+                    total += e.shrink(keep_superblocks)
+        return total
 
     @property
     def stats(self) -> EngineStats:

@@ -13,8 +13,9 @@ mesh's lead device, so the one read stays one read.
 
 ``launch`` enqueues a step's work on the device and returns its six [B]
 results, packed into one int32 tensor, still on the device; ``collect``
-reads them back with a single ``.cpu()`` — the one transfer of a steady
-step.  ``execute`` is launch then collect.
+reads them back in one transfer — the one read of a steady step: on a
+card a copy into pinned memory and a wait for the current stream.
+``execute`` is launch then collect.
 
 **Captured steps.**  The reference's runner owns one compiled executable
 per static key; on a card this one owns one captured
@@ -39,12 +40,19 @@ dropped.  A graph reads the addresses it was captured with:
 The graph's packed output is its static output: :meth:`collect` reads it,
 so a step is collected before its key is replayed again.  A capture first
 runs a dry step (no row active: nothing is granted, appended or copied,
-over a clone of the pool) on the runner's own capture stream, so that the
+over a clone of the pool) on the stream it captures on, so that the
 kernels are built and cuBLAS has its workspace there before capture
-begins; the split-merge tickets of that stream are reserved outside the
-graph's memory pool (``kernels/paged_attention.py::reserve_tickets``);
-the generator is registered with every graph that samples.  All graphs of
-one runner share one memory pool: they never run at once.  A capture that
+begins — on a fleet replica's stream, or where the default stream is
+current on the runner's own; the graphs' split-merge tickets are the
+runner's own buffer,
+reserved outside the graphs' memory pool
+(``kernels/paged_attention.py::reserve_tickets``); the generator is
+registered with every graph that samples.  All graphs of one runner share
+one memory pool and one ticket buffer: they never run at once.  A graph
+replays on the current stream — a fleet replica's own stream
+(``serving/parallel.py``) — and a capture waits for nothing but its own
+stream (``capture.py``); graphs dropped for a wider prompt buffer are
+dropped once the streams they replayed on have run them.  A capture that
 fails raises — the card never falls back to the eager step.  Kernel
 launches recorded by a capture are counted at each replay
 (``kernels/build.py::count_replay``), the dry step's as it runs.
@@ -69,9 +77,10 @@ import torch
 from repro_torch.capture import record_graph, side_stream, uses_graphs
 from repro_torch.core import pagepool as pp
 from repro_torch.kernels.build import count_replay
-from repro_torch.kernels.paged_attention import reserve_tickets, ticket_count
+from repro_torch.kernels.paged_attention import (capture_tickets,
+                                                 reserve_tickets, ticket_count)
 from .kv_manager import DeviceStepState, KVCacheManager
-from .paged_decode import _local_cfg, fused_decode_step
+from .paged_decode import fused_decode_step, launch_heads
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -152,7 +161,15 @@ class ModelRunner:
         #: captured steps by key (chunk size, speculative, validate, width)
         self.step_graphs: dict[tuple, StepGraph] = {}
         self._pool = None  # the graphs' static pool
-        self._stream = self._mempool = None
+        # the runner's own capture stream, the stream of the last capture
+        self._stream = self._capture_on = self._mempool = None
+        #: the graphs' split-merge tickets, and grown-out buffers that
+        #: graphs captured before still read
+        self._tickets = None
+        self._old_tickets: list = []
+        #: the streams graphs were replayed on since the last drop
+        self._replayed_on: dict = {}
+        self._host_out = None  # the pinned buffer of the step's one read
         # resident operands: read by the graphs (and by the eager step on
         # a card), refreshed only when the host's value changes
         self._budget = torch.ones((), dtype=torch.int64, device=dev)
@@ -233,6 +250,9 @@ class ModelRunner:
                                 self._drafts(kvm, chunk_size, drafts)):
                 dst.copy_(_upload(src, kvm.device))
         self._replay(g.graph)
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            self._replayed_on.setdefault(stream.cuda_stream, stream)
         count_replay(g.launches)
         g.replays += 1
         kvm.install_state(st._replace(pool=self._pool))
@@ -240,8 +260,22 @@ class ModelRunner:
 
     def collect(self, pending) -> StepResult:
         """THE one host transfer of a steady step: the six packed [B]
-        results in a single ``.cpu()``."""
-        host = pending.cpu().numpy()
+        results in a single read — on the CPU a ``.cpu()``; on a card a
+        copy into the runner's pinned buffer and a wait for the current
+        stream.  A ``.cpu()`` to pageable memory would wait inside the
+        CUDA driver, where it holds up the CUDA calls of every other thread
+        (the other replicas of a fleet on one card) until this stream's
+        work ends; a stream's wait holds up nothing but its caller."""
+        if pending.device.type != "cuda":
+            host = pending.cpu().numpy()
+        else:
+            if self._host_out is None or self._host_out.shape != pending.shape:
+                self._host_out = torch.empty(pending.shape,
+                                             dtype=pending.dtype,
+                                             pin_memory=True)
+            self._host_out.copy_(pending, non_blocking=True)
+            torch.cuda.current_stream(pending.device).synchronize()
+            host = self._host_out.numpy().copy()
         return StepResult(host[0], host[1].astype(bool), host[2],
                           host[3].astype(bool), host[4], host[5])
 
@@ -275,26 +309,38 @@ class ModelRunner:
 
     @contextlib.contextmanager
     def _capture_stream(self):
-        """Run the block on the stream every graph of this runner is
-        captured on, after the current stream's work and before what it
-        enqueues next (on the CPU, in place)."""
+        """Run the block on the stream this runner captures on: the
+        current stream where it is not the card's default one (a fleet
+        replica's own), else the runner's own stream, after the current
+        stream's work and before what it enqueues next (on the CPU, in
+        place)."""
         if self.device.type != "cuda":
+            yield
+            return
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        cur = torch.cuda.current_stream(self.device)
+        if cur != torch.cuda.default_stream(self.device):
+            self._capture_on = cur
             yield
             return
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-            self._mempool = torch.cuda.graph_pool_handle()
+        self._capture_on = self._stream
         with side_stream(self._stream, self.device):
             yield
 
     def _reserve_tickets(self, B: int, chunk_size: int) -> None:
-        """The capture stream's split-merge tickets at the size of this
-        key's launches, outside the graph's pool."""
+        """The graphs' split-merge tickets at the size of this key's
+        launches (the widest shard's), outside the graphs' pool."""
         if self.device.type != "cuda":
             return
-        lcfg = _local_cfg(self.cfg, self.mesh.tp if self.mesh else 1)
-        reserve_tickets(self.device, self._stream.cuda_stream, ticket_count(
-            B, chunk_size, lcfg.n_heads, lcfg.n_kv_heads))
+        n = max(ticket_count(B, chunk_size, hq, hkv) for hq, hkv in
+                launch_heads(self.cfg, self.mesh.tp if self.mesh else 1))
+        buf = reserve_tickets(self.device, n, self._tickets)
+        if self._tickets is not None and buf is not self._tickets:
+            self._old_tickets.append(self._tickets)
+        self._tickets = buf
 
     def capture(self, kvm: KVCacheManager, key: tuple) -> StepGraph:
         """Capture the step of ``key`` (chunk size, speculative, validate,
@@ -311,10 +357,16 @@ class ModelRunner:
             raise ValueError(f"key {key}: the prompt buffer is {width} wide")
         # graphs over a narrower prompt buffer read a buffer since replaced
         stale = [k for k in self.step_graphs if k[3] != width]
-        if stale and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # their last replays ended
+        if stale:  # their last replays ended: on their streams alone
+            for stream in self._replayed_on.values():
+                stream.synchronize()
+            self._replayed_on.clear()
         for k in stale:
             del self.step_graphs[k]
+        if stale and not self.step_graphs and self._mempool is not None:
+            # a pool whose graphs are all gone takes no capture until the
+            # allocator frees it, which a synchronised card would: a new one
+            self._mempool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         dev = kvm.device
         B = kvm.max_batch
@@ -348,13 +400,16 @@ class ModelRunner:
         return g
 
     def _record(self, body):
-        """Capture ``body()`` as a CUDA graph on the capture stream, into
-        the runner's memory pool; nothing runs.  Returns (the graph, the
+        """Capture ``body()`` as a CUDA graph on the stream of the capture
+        (:meth:`_capture_stream`), into the runner's memory pool; nothing
+        runs.  Returns (the graph, the
         kernel launches it recorded)."""
-        return record_graph(body, self._stream, self._mempool,
-                            None if self.greedy else self.generator)
+        with capture_tickets(self._tickets):
+            return record_graph(body, self._capture_on, self._mempool,
+                                None if self.greedy else self.generator)
 
     @staticmethod
     def _replay(graph) -> None:
-        """Launch a captured graph on the current stream."""
+        """Launch a captured graph on the current stream (a fleet
+        replica's own)."""
         graph.replay()

@@ -46,8 +46,12 @@ columns of those heads and its own slab of the arena — so each shard's
 kernel launch takes a contiguous slab.  Where T divides Hkv that is the
 reference's split; where Hkv = 1 a whole copy per shard; where each query
 slab falls within one KV head (e.g. Hq=8, Hkv=2, T=4) the shards reading
-one head hold equal copies of it.  A slab that straddles a KV-head group
-(e.g. Hkv=3 at T=2) is refused (:func:`check_heads`).
+one head hold equal copies of it; where a slab straddles KV-head groups
+(e.g. Hq=6, Hkv=3 at T=2: shard 0 heads 0-1, shard 1 heads 1-2) the
+neighbours hold equal copies of the head they share, and the shard's
+launch takes its query slab padded with zero heads to whole groups
+(:func:`query_window`).  The one layout refused is a query head count T
+does not divide (:func:`check_heads`), which the reference serves.
 
 The sharded step (``launch/steps.py::sharded``) runs the same rules on a
 ``DeviceMesh`` of the same axis names: :func:`placements` turns a spec into
@@ -829,26 +833,44 @@ def kv_split(cfg, tp: int) -> bool:
 
 def kv_heads(cfg, tp: int, s: int) -> tuple[int, int]:
     """(first, count) of the KV heads shard ``s`` of ``tp`` holds: those
-    its query slab ``[s·Hq/T, (s+1)·Hq/T)`` reads (:func:`check_heads`
-    must pass)."""
+    its query slab ``[s·slab, (s+1)·slab)`` reads, ``slab = Hq/T``, with
+    ``g = Hq/Hkv`` query heads a KV head: ``[⌊s·slab/g⌋, ⌈(s+1)·slab/g⌉)``
+    (:func:`check_heads` must pass)."""
     if tp <= 1:
         return 0, cfg.n_kv_heads
     slab = cfg.n_heads // tp
     group = cfg.n_heads // cfg.n_kv_heads
-    if slab % group == 0:
-        return s * slab // group, slab // group
-    return s * slab // group, 1
+    first = s * slab // group
+    return first, -(-(s + 1) * slab // group) - first
 
 
-def kv_shards(cfg, tp: int) -> tuple[int, ...]:
-    """The shards whose KV slabs, joined in order, are the whole arena: the
-    first shard holding each head range."""
-    seen, out = set(), []
-    for s in range(tp):
-        first = kv_heads(cfg, tp, s)[0]
-        if first not in seen:
-            seen.add(first)
-            out.append(s)
+@functools.cache
+def query_window(cfg, tp: int, s: int) -> tuple[int, int]:
+    """(offset, width) of shard ``s``'s query slab in the query heads its
+    kernel launch takes.  A launch over h KV heads maps its query head j to
+    KV head ``j // (width/h)``: where the slab covers whole KV-head groups
+    or lies within one, that is the slab itself, ``(0, slab)``; where it
+    straddles groups (Hq=6, Hkv=3 at T=2: heads 0,1,2 read KV 0,0,1) the
+    launch takes ``count·g`` heads, the slab's own at ``s·slab − first·g``
+    and zero heads around them, and the caller slices its heads back."""
+    first, count = kv_heads(cfg, tp, s)
+    slab = cfg.n_heads // max(tp, 1)
+    group = cfg.n_heads // cfg.n_kv_heads
+    if tp <= 1 or count == 1 or slab % group == 0:
+        return 0, slab
+    return s * slab - first * group, count * group
+
+
+def kv_join(cfg, tp: int) -> tuple[tuple[int, int], ...]:
+    """(shard, first local head) of each slab that joins the whole arena,
+    in head order, no head twice: each shard holding a head no earlier
+    shard holds, from the first such head."""
+    out, end = [], 0
+    for s in range(max(tp, 1)):
+        first, count = kv_heads(cfg, tp, s)
+        if first + count > end:
+            out.append((s, end - first))
+            end = first + count
     return tuple(out)
 
 
@@ -910,22 +932,16 @@ def paged_kv_axis(shape, tp: int) -> int | None:
 
 def check_heads(cfg, tp: int) -> None:
     """Raise ``ValueError`` unless ``tp`` shards can each attend on their
-    query slab ``[s·Hq/T, (s+1)·Hq/T)`` over a contiguous slab of KV heads:
-    T must divide Hq, and the slab must cover whole KV-head groups (T
-    divides Hkv) or fall within one group (Hq/Hkv a multiple of Hq/T)."""
+    query slab ``[s·Hq/T, (s+1)·Hq/T)``: T must divide Hq.  Each shard then
+    holds the contiguous KV heads its slab reads (:func:`kv_heads`) — whole
+    KV-head groups, one head, or the heads of a slab that straddles groups,
+    whose launch pads it (:func:`query_window`)."""
     if tp <= 1:
         return
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    hq = cfg.n_heads
     if hq % tp:
         raise ValueError(f"n_heads={hq} is not divisible by tensor_parallel="
                          f"{tp}: the query heads cannot split")
-    slab, group = hq // tp, hq // hkv
-    if slab % group and group % slab:
-        raise ValueError(
-            f"n_kv_heads={hkv} is not divisible by tensor_parallel={tp}, and "
-            f"a shard's query slab of {slab} heads straddles the KV-head "
-            f"groups of {group} query heads: its KV heads would be a strided "
-            f"slice, and a shard's kernel launch takes a contiguous slab")
 
 
 def _shard_leaf(cfg, path, t, mesh, s):

@@ -620,6 +620,97 @@ def test_cuda_sharded_attention_on_kv_head_slabs(cuda, C, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_sharded_attention_on_straddling_slabs(cuda, C, fused):
+    """Hq=6, Hkv=3 over 2 shards on one card (``sharding/rules.py::
+    query_window``): shard 0 on KV heads 0-1, shard 1 on 1-2, each launch
+    on its 3 query heads padded with zero heads to 4 (at offsets 0 and 1),
+    with the fused append into its own copy.  The joined output equals
+    one launch over the whole arena bit for bit, every copy its heads of
+    that launch's arena, and the plain version within bf16's tolerance."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda, paged_attention_cuda,
+        paged_attention_plain, paged_attention_sharded)
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.paged_decode import pad_window, window_heads
+    q, k, v, kn, vn, bt, ln, cl, ok = [
+        torch.from_numpy(a).to(cuda) for a in
+        append_edge_case(2, 16, C, 6, 3, 128, seed=60 + C)]
+    q, k, v, kn, vn = (a.to(torch.bfloat16) for a in (q, k, v, kn, vn))
+    mesh = make_serving_mesh(2, [cuda] * 2)
+    heads = [(0, 2), (1, 3)]
+    windows = [(0, 4), (1, 4)]
+
+    def slabs(t):
+        return [t[:, :, a:b].contiguous() for a, b in heads]
+    qs = [pad_window(t.contiguous(), w)
+          for t, w in zip(q.chunk(2, dim=2), windows)]
+    full = [k.clone(), v.clone()]
+    copies = [slabs(k), slabs(v)]
+    before = paged_attention_cuda.launches
+    if fused:
+        want = paged_attention_append_cuda(q, *full, kn, vn, bt, ln, cl, ok)
+        before = paged_attention_cuda.launches
+        outs = paged_attention_sharded(qs, *copies, bt, ln, cl, mesh=mesh,
+                                       n_kv_heads=4,
+                                       append=(slabs(kn), slabs(vn), ok))
+    else:
+        want = paged_attention_cuda(q, *full, bt, ln, cl)
+        before = paged_attention_cuda.launches
+        outs = paged_attention_sharded(qs, *copies, bt, ln, cl, mesh=mesh,
+                                       n_kv_heads=4)
+    assert paged_attention_cuda.launches - before == 2
+    outs = [window_heads(o, w, 3) for o, w in zip(outs, windows)]
+    assert torch.equal(torch.cat(outs, dim=2), want)
+    for c, f in zip(copies, full):
+        for s, (a, b) in enumerate(heads):
+            assert torch.equal(c[s], f[:, :, a:b])
+    plain = paged_attention_plain(q, *full, bt, ln, cl)
+    torch.testing.assert_close(want.float(), plain.float(), atol=2e-2,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_straddling_tp2_engine_matches_cpu(cuda):
+    """Reduced olmo-1b with Hq=6, Hkv=3 at tensor_parallel=2, both shards
+    on one card (through its step graphs), generates the tokens of the
+    same engine on the CPU from float32 weights; the joined arena agrees
+    within the bf16 arena's rounding, and the head both shards hold is
+    bitwise the same in both copies."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = dataclasses.replace(reduced(get_config("olmo-1b")), n_heads=6,
+                              n_kv_heads=3)
+    params = init_decoder_lm(cfg, seed=4, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(3, 14, 5)]
+    out = []
+    for dev in ("cpu", cuda):
+        eng = PagedServingEngine(cfg, params, tensor_parallel=2,
+                                 devices=[dev, dev], num_pages=16,
+                                 page_size=4, max_batch=3, prefill_chunk=8)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        st = eng.run()
+        assert st.warnings_fired == int(eng.pool.clock.cpu())
+        for n in ("k", "v"):
+            assert torch.equal(eng.kv[0][n][:, :, :, 1],
+                               eng.kv[1][n][:, :, :, 0])
+        out.append(([r.generated for r in reqs],
+                    {n: t.float().cpu() for n, t in
+                     eng.kv_manager.gather_kv().items()}))
+    assert out[0][0] == out[1][0]
+    for n in ("k", "v"):
+        torch.testing.assert_close(out[1][1][n], out[0][1][n], atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
 def test_cuda_expert_parallel_engine_matches_cpu(cuda, monkeypatch):
     """Reduced olmoe-1b-7b at tensor_parallel=2 under
     ``REPRO_MOE_SHARD=ep`` (4 whole experts a shard), both shards on one
@@ -833,9 +924,10 @@ def test_cuda_failed_capture_raises(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_capture_stream_tickets_lie_outside_the_graph_pool(cuda):
-    """Kernel 1's split-merge tickets of the capture stream are reserved
-    before capture, in ordinary device memory, not in the pool the
-    runner's graphs share; and they read zero after the replays."""
+    """Kernel 1's split-merge tickets of the runner's graphs (the
+    runner's own buffer) are reserved before capture, in ordinary device
+    memory, not in the pool the runner's graphs share; and they read zero
+    after the replays."""
     import importlib
 
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
@@ -850,8 +942,8 @@ def test_cuda_capture_stream_tickets_lie_outside_the_graph_pool(cuda):
     assert all(r.state == "finished" for r in reqs)
     runner = eng.runner
     assert len(runner.step_graphs) >= 2
-    dev = torch.device("cuda", torch.cuda.current_device())
-    buf = pa._tickets[(dev, runner._stream.cuda_stream)]
+    buf = runner._tickets
+    assert buf is not None
     torch.cuda.synchronize()
     assert int(torch.count_nonzero(buf).cpu()) == 0
     seg = [s for s in torch.cuda.memory_snapshot()

@@ -40,8 +40,8 @@ from repro_torch.kernels.ops import paged_attention
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.serving import PagedServingEngine
-from repro_torch.sharding.rules import (check_heads, kv_heads, kv_shards,
-                                        moe_axis, param_shards)
+from repro_torch.sharding.rules import (check_heads, kv_heads, kv_join,
+                                        moe_axis, param_shards, query_window)
 from split_cases import append_case
 from test_torch_zoo import MARGIN_TOL, WORKLOADS, ZOO, _hold, _record, _waves
 
@@ -214,22 +214,33 @@ def test_moe_modes_match_reference_tp2(moe_weights, reference, monkeypatch,
 
 
 def test_straddling_query_slabs_are_refused():
-    """Only a slab that straddles two KV-head groups is refused; a slab
-    within one group and a whole number of groups are served."""
+    """No KV-head layout is refused any more: a slab within one group, a
+    whole number of groups and a slab that straddles groups are all
+    served (the straddling one over the heads it reads, its launch padded
+    to whole groups); only a query head count T does not divide is
+    refused."""
     cfg = treduced(tget("olmo-1b"))
     for heads, tp in ((dict(n_heads=8, n_kv_heads=2), 4),
                       (dict(n_heads=8, n_kv_heads=2), 8),
                       (dict(n_heads=8, n_kv_heads=4), 2),
-                      (dict(n_heads=8, n_kv_heads=1), 4)):
+                      (dict(n_heads=8, n_kv_heads=1), 4),
+                      (dict(n_heads=6, n_kv_heads=3), 2),
+                      (dict(n_heads=12, n_kv_heads=3), 4)):
         check_heads(dataclasses.replace(cfg, **heads), tp)
-    with pytest.raises(ValueError, match="straddles"):
-        check_heads(dataclasses.replace(cfg, n_heads=6, n_kv_heads=3), 2)
-    with pytest.raises(ValueError, match="straddles"):
-        check_heads(dataclasses.replace(cfg, n_heads=12, n_kv_heads=3), 4)
+    with pytest.raises(ValueError, match="not divisible"):
+        check_heads(dataclasses.replace(cfg, n_heads=6, n_kv_heads=3), 4)
     c = dataclasses.replace(cfg, **GQA_HEADS)
     assert [kv_heads(c, 4, s) for s in range(4)] == [(0, 1)] * 2 + [(1, 1)] * 2
-    assert kv_shards(c, 4) == (0, 2)
+    assert kv_join(c, 4) == ((0, 0), (2, 0))
     assert [kv_heads(c, 2, s) for s in range(2)] == [(0, 1), (1, 1)]
+    assert [query_window(c, 4, s) for s in range(4)] == [(0, 2)] * 4
+    # Hq=12, Hkv=3 at T=4: slabs of 3 over groups of 4 query heads
+    c = dataclasses.replace(cfg, n_heads=12, n_kv_heads=3)
+    assert [kv_heads(c, 4, s) for s in range(4)] == [(0, 1), (0, 2), (1, 2),
+                                                     (2, 1)]
+    assert [query_window(c, 4, s) for s in range(4)] == [(0, 3), (3, 8),
+                                                         (2, 8), (0, 3)]
+    assert kv_join(c, 4) == ((0, 0), (1, 1), (2, 1))
 
 
 def _min_margin_gqa(jc, jp, run):
@@ -267,7 +278,8 @@ def test_gqa_heads_the_mesh_does_not_divide_match_reference_tp4(reference,
     assert mine["stats"] == ref["stats"]
     assert mine["tables"] == ref["tables"]
     assert mine["clock"] == ref["clock"] == mine["stats"]["warnings_fired"]
-    assert eng.kv_manager.kv_replicated and eng.kv_manager.kv_shards == (0, 2)
+    assert eng.kv_manager.kv_replicated
+    assert eng.kv_manager.kv_join == ((0, 0), (2, 0))
     D = tc.head_dim
     for s, m in enumerate(eng.params):
         h = s // 2

@@ -237,9 +237,9 @@ def test_mqa_kv_projections_stay_whole(arch, small):
 
 def test_kv_storage_init_replicates_an_arena_the_mesh_does_not_divide():
     """MQA over two shards: each shard gets a whole [L, P, page, Hkv, D]
-    copy of its own (the reference's replicated layout); a query head
-    count the mesh does not divide, or a query slab that straddles two
-    KV-head groups (Hkv=3 at T=2), raise."""
+    copy of its own (the reference's replicated layout); a query slab that
+    straddles two KV-head groups (Hkv=3 at T=2) gets the two heads it
+    reads; a query head count the mesh does not divide raises."""
     cfg = treduced(tget("granite-20b"))
     full = kv_storage_init(cfg, 8, 4, device="cpu")
     copies = kv_storage_init(cfg, 8, 4, mesh=make_serving_mesh(2, ["cpu"] * 2))
@@ -248,7 +248,10 @@ def test_kv_storage_init_replicates_an_arena_the_mesh_does_not_divide():
         assert copies[0][n].shape == full[n].shape == (
             cfg.n_layers, 8, 4, 1, cfg.head_dim)
         assert copies[0][n].data_ptr() != copies[1][n].data_ptr()
-    for over, tp in ((dict(n_heads=6), 4), (dict(n_kv_heads=3, n_heads=6), 2)):
-        with pytest.raises(ValueError, match="not divisible"):
-            kv_storage_init(dataclasses.replace(cfg, **over), 8, 4,
-                            mesh=make_serving_mesh(tp, ["cpu"] * tp))
+    straddle = kv_storage_init(
+        dataclasses.replace(cfg, n_kv_heads=3, n_heads=6), 8, 4,
+        mesh=make_serving_mesh(2, ["cpu"] * 2))
+    assert [s["k"].shape[3] for s in straddle] == [2, 2]
+    with pytest.raises(ValueError, match="not divisible"):
+        kv_storage_init(dataclasses.replace(cfg, n_heads=6), 8, 4,
+                        mesh=make_serving_mesh(4, ["cpu"] * 4))

@@ -1,20 +1,20 @@
 """Where a threaded fleet of replicas on one card loses its time.
 
-Usage: python tools/fleet_threads.py [--eager]
+Usage: python tools/fleet_threads.py [--eager] [--one N]
 
 Serves chip_smoke.py's fleet workload (full-width olmo-1b, seeded bf16
 weights, 512 pages of 16 tokens, ``max_batch=8``, ``prefill_chunk=16``,
 16 prompts of 64-256 tokens, 32 new tokens each) on the card, through
-the step graphs (``--eager``: the eager step), in five ways:
+the step graphs (``--eager``: the eager step), in four ways:
 
 - one engine;
 - a 2-replica ``DataParallelEngine`` in ``step()`` mode (one thread);
 - in ``run()`` mode (a driver thread a replica) at the interpreter's
   switch interval, then at 0.1 ms (``sys.setswitchinterval``, restored
-  after);
-- in ``run()`` mode with each driver thread on a CUDA stream of its own
-  (``serving/parallel.py::_current`` patched here to enter it), so that a
-  replica's one read waits for its own work only.
+  after).
+
+Each replica steps on its own CUDA stream, as the fleet places it
+(``serving/parallel.py``).
 
 Each way drains the requests twice on one server and times the second
 drain (the first's wall, which holds the graphs' captures, is printed
@@ -22,13 +22,15 @@ beside it).  Prints each way's wall, tokens/s and ratio to one engine,
 and for the
 ``run()`` ways each driver thread's share of its wall spent in the step's
 read (``ModelRunner.collect``, timed by a patch here).  Every way must
-generate the ``step()`` fleet's tokens, else it exits 1.  Needs a GPU.
+generate the ``step()`` fleet's tokens, else it exits 1.  ``--one N``:
+only one engine, its first drain then N more, each timed and printed
+(tokens/s), so that two trees' engines can be timed in turn, one
+process each.  Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import pathlib
 import sys
 import threading
@@ -44,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--eager", action="store_true",
                     help="the eager step in place of the step graphs")
+    ap.add_argument("--one", type=int, default=0, metavar="N",
+                    help="time N warm drains of one engine, nothing else")
     args = ap.parse_args()
 
     import numpy as np
@@ -66,6 +70,23 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(64, 257, 16)]
     gen = 16 * 32
+    if args.one:
+        eng = PagedServingEngine(cfg, params, device="cuda", **KW)
+        rates = []
+        for i in range(args.one + 1):
+            reqs = [eng.submit(p, 32) for p in prompts]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert all(r.state == "finished" for r in reqs)
+            if i:
+                rates.append(gen / wall)
+        print(f"fleet_threads one engine on {name}: {args.one} warm drains "
+              f"{[round(r, 1) for r in rates]} tokens/s, mean "
+              f"{sum(rates) / len(rates):.1f}")
+        return 0
 
     waits: dict = {}  # thread -> seconds in the read
     collect = ModelRunner.collect
@@ -79,21 +100,6 @@ def main() -> int:
             waits[key] = waits.get(key, 0.0) + time.perf_counter() - t0
 
     ModelRunner.collect = timed_collect
-    current = parallel._current
-    streams = threading.local()
-
-    @contextlib.contextmanager
-    def own_stream(device):
-        with current(device):
-            if threading.current_thread() is threading.main_thread():
-                yield
-                return
-            if not hasattr(streams, "s"):
-                streams.s = torch.cuda.Stream(device)
-            streams.s.wait_stream(torch.cuda.default_stream(device))
-            with torch.cuda.stream(streams.s):
-                yield
-            torch.cuda.default_stream(device).wait_stream(streams.s)
 
     def drain(make, mode):
         """Two drains of the requests on one server: (the second's tokens,
@@ -154,18 +160,14 @@ def main() -> int:
     print(f"fleet_threads step(): {wall:.3f} s [{first:.3f}] "
           f"({gen / wall:.1f} tokens/s, {one / wall:.3f}x one engine)")
     interval = sys.getswitchinterval()
-    ways = [("run()", interval, False), ("run() at 0.1 ms", 1e-4, False),
-            ("run() on a stream a replica", interval, True)]
+    ways = [("run()", interval), ("run() at 0.1 ms", 1e-4)]
     ok = True
-    for label, switch, stream in ways:
+    for label, switch in ways:
         sys.setswitchinterval(switch)
-        if stream:
-            parallel._current = own_stream
         try:
             first, tokens, wall, threads = drain(fleet, "run")
         finally:
             sys.setswitchinterval(interval)
-            parallel._current = current
         ok &= tokens == base
         reads = ", ".join(f"{100 * r / w:.1f}% of {w:.3f} s"
                           for r, w in threads)
