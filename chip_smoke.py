@@ -125,11 +125,15 @@ run with a nonzero exit and no result line.
    fleet with ``auto_revive`` whose replica 0 is killed mid-decode; in
    float32 the stitched tokens must equal one engine's, with one failure,
    one revival and every request of the killed replica migrated; in bf16
-   the equal tokens are printed.  Then in float32 replica 0 stalls: a 30 s
-   ``torch.cuda._sleep`` on its stream, its thread blocked in the step's
-   read; the watchdog (2 s) fails it over and revives it on a new stream,
-   and the fleet finishes every request, token-exact against one engine,
-   while the stalled stream still sleeps.  (c) bf16 under ``ChaosConfig`` (denials, spurious
+   the equal tokens are printed.  Then in float32 replica 0 stalls, twice:
+   a 30 s ``torch.cuda._sleep`` on its stream at its 20th driver
+   iteration, and a 20 s one at its 4th (mid-prefill, the card test's
+   point), its thread blocked in the step's read; the watchdog (2 s)
+   fails it over and revives it on a new stream, and the fleet finishes
+   every request, token-exact against one engine, while the stalled
+   stream still sleeps; the round after the stall captures no graph, and
+   the steps whose graph is missing run eagerly, counted (printed, and
+   some must be).  (c) bf16 under ``ChaosConfig`` (denials, spurious
    invalidations, delayed frees, unmap-under-reader): in ``step()`` mode
    one read per replica per steady step; then on 64 pages a replica with
    a kill, timed against the same fleet fault-free: 0 lost,
@@ -143,6 +147,15 @@ run with a nonzero exit and no result line.
    through ``launch/serve.py::_replay_trace``: 0 lost, TTFT percentiles
    per class.  (f) The CLI's ``main`` at its reduced size: ``--replicas
    2``, ``--classes --stream``, ``--trace``.
+   (l) Heads the TP degree does not divide: full-width olmo-1b with 6
+   query heads over 3 KV heads of 128, float32, served at TP=1 and at
+   ``tensor_parallel=4`` on this card (``devices=["cuda:0"] * 4``), 8
+   requests of 64-256 prompt tokens, 32 new each, through the step
+   graphs: every shard holds the whole attention block and a whole copy of
+   the arena and launches kernel 3 over all six query heads
+   (``sharding/rules.py::heads_split``).  Held: TP=4's tokens equal
+   TP=1's, the four copies bitwise equal after the run, each run's
+   launches (4 x 16 fused launches a step at TP=4) and clock mirror.
 6. Models (g): the non-paged path, ``build_model`` on the card at full
    width and depth for olmo-1b (512-token prompts), mamba2-780m (1000, no
    multiple of its SSD chunk), recurrentgemma-9b (2560: past its 2048
@@ -249,7 +262,19 @@ run with a nonzero exit and no result line.
    ``HostAllocator`` and on a ``DevicePagePool`` on the card; no kernel
    launched.  Printed, not held: peak and after Pss and Rss, whether they
    shrank, superblocks, seconds.
-11. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
+11. Examples (m): the README's four examples over the port
+   (``examples/*_torch.py``) on the card at their default sizes: the
+   quickstart (host layer, serving with its prefix cache, 40 training
+   steps on random tokens: the loss must stay within 0.1 of ln V),
+   serve_paged (its four workloads through the serving CLI),
+   train_lm (300 reduced steps, a checkpoint every 100, a failure at 150:
+   the loss must fall through the restart) and reclaim_demo (the three
+   release strategies' /proc residency, then the device pool's burst,
+   ``shrink()`` and next burst).  Each serving path's launches are set to
+   0 before it and held after it (the fused launch once per layer a step;
+   the training demos launch none of the repository's kernels); each
+   demo's numbers print on lines of their own.
+12. Dry run: ``launch/dryrun.py`` on olmo-1b ``train_4k`` and qwen2-72b
    ``decode_32k`` on the production mesh, in a child process that sees no
    card (started after the build, collected at the end): each cell's
    sharded step runs as rank 0 of a fake process group of 256 ranks.
@@ -2222,15 +2247,19 @@ def fleet_failover(cfg, params, prompts, tag, kill_at=20, **kw):
 STALL_S = 30.0  # the stalled replica's sleep on its stream
 
 
-def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
+def fleet_stall(cfg, params, prompts, base, name, stall_at=20,
+                sleep_s=STALL_S):
     """Failover on one card: a warmed float32 2-replica fleet under a 2 s
     stall timeout with ``auto_revive``; at its ``stall_at``-th driver
-    iteration replica 0 enqueues a ``STALL_S`` sleep on its own stream and
+    iteration replica 0 enqueues a ``sleep_s`` sleep on its own stream and
     its thread blocks in the step's read.  The watchdog abandons it,
     migrates its requests and revives it on a new stream; the fleet must
     finish every request, stitched tokens equal to one engine's
     (``base``), while the stalled stream still sleeps (an event recorded
-    after the sleep has not completed).  Then the sleep is waited out and
+    after the sleep has not completed).  The round after the stall
+    captures nothing: every step whose graph is missing runs eagerly
+    (``DataParallelEngine.eager_steps_held``, which must have counted some:
+    the revived replica has no graph).  Then the sleep is waited out and
     the abandoned thread joined."""
     import threading
 
@@ -2238,7 +2267,7 @@ def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
 
     from repro_torch.serving import DataParallelEngine, WatchdogConfig
 
-    tag = "fleet (b) float32 stall"
+    tag = f"fleet (b) float32 stall at {stall_at}"
     fleet = DataParallelEngine(
         cfg, params, replicas=2, devices=ON_CARD,
         watchdog=WatchdogConfig(stall_timeout=2.0, auto_revive=True),
@@ -2251,7 +2280,7 @@ def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
     torch.cuda._sleep(100_000_000)
     end.record()
     end.synchronize()
-    cycles = int(STALL_S * 1e8 / (start.elapsed_time(end) / 1e3))
+    cycles = int(sleep_s * 1e8 / (start.elapsed_time(end) / 1e3))
     stalled, calls = {}, [0]
 
     def stall(_eng):
@@ -2271,7 +2300,7 @@ def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
     asleep = "done" in stalled and not stalled["done"].query()
     try:
         check(asleep, f"{tag}: the stalled stream woke before the fleet "
-              f"finished ({wall:.1f} s of a {STALL_S} s sleep)")
+              f"finished ({wall:.1f} s of a {sleep_s} s sleep)")
         check(stalled["stream"] == old and fleet.streams[0] is not old,
               f"{tag}: the stall was not on replica 0's stream, or the "
               f"revived replica kept it")
@@ -2287,6 +2316,9 @@ def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
         check([r.output_tokens for r in reqs] == base,
               f"{tag}: stitched tokens differ from one engine's "
               f"({prefix_equal([r.output_tokens for r in reqs], base)})")
+        held = fleet.eager_steps_held
+        check(held > 0, f"{tag}: no step ran eagerly while the stalled "
+              f"stream slept")
     finally:
         if "done" in stalled:
             stalled["done"].synchronize()
@@ -2294,12 +2326,12 @@ def fleet_stall(cfg, params, prompts, base, name, stall_at=20):
     check(not stalled["thread"].is_alive(),
           f"{tag}: the abandoned driver thread did not end")
     mirrors_hold(tag, fleet.replicas)
-    log(f"{tag}: replica 0 slept {STALL_S} s on its stream at its "
+    log(f"{tag}: replica 0 slept {sleep_s} s on its stream at its "
         f"{stall_at}th iteration; the fleet finished all {len(reqs)} "
         f"requests in {wall:.2f} s, the sleep still running ({len(victims)} "
         f"on the stalled replica, {fleet.stats.requests_migrated} migrated, "
-        f"1 failure, 1 revival on a new stream), stitched tokens == one "
-        f"engine's; on {name}")
+        f"1 failure, 1 revival on a new stream, {held} steps eager while "
+        f"captures were held), stitched tokens == one engine's; on {name}")
 
 
 def fleet_phase(name):
@@ -2508,6 +2540,9 @@ def fleet_phase(name):
         f"1 failure, 1 revival, stitched tokens == one engine's "
         f"({sum(map(len, base32))} tokens)")
     fleet_stall(cfg, params, sixteen, base32, name)
+    # the card test's point (tests/test_torch_fleet_streams.py): mid-prefill
+    fleet_stall(cfg, params, sixteen, base32, name, stall_at=4,
+                sleep_s=20.0)
     # the 2D fleet against one TP=2 engine: the fleet layer must change no
     # token.  TP=2 against TP=1 is the engine phase's check; over these 16
     # requests float32 TP=2 can meet a near tie against TP=1 (the bf16
@@ -2559,6 +2594,140 @@ def fleet_phase(name):
         "card at the reduced size, 0 lost")
     return {"one engine": wall1, "fleet run()": wall2, "fleet step()": wall3,
             "eager one engine": wall1e, "eager fleet run()": wall2e}
+
+
+def heads_tp4_phase(name):
+    """Phase 5 (l): query heads the TP degree does not divide (module
+    docstring).  Nothing here is caught."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_decoder_lm
+    from repro_torch.serving import PagedServingEngine
+    from repro_torch.sharding.rules import heads_split
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_heads=6, n_kv_heads=3)
+    check(not heads_split(cfg, 4), "(l): 4 must not divide 6 query heads")
+    params = init_decoder_lm(cfg, seed=0, dtype=torch.float32, device="cuda")
+    prompts = fleet_requests(cfg)[:8]
+    runs = {}
+    for tp, where in ((1, dict(device="cuda")),
+                      (4, dict(tensor_parallel=4,
+                               devices=["cuda:0"] * 4))):
+        tag = f"(l) olmo-1b Hq=6 Hkv=3 float32 TP={tp}"
+        eng = PagedServingEngine(cfg, params, **where, **FLEET_KW)
+        reqs = [eng.submit(p, 32) for p in prompts]
+        reset_launches()
+        _, wall = timed(eng.run)
+        launches = read_launches(tag, cfg.n_layers, eng.stats.steps, tp)
+        check(all(r.state == "finished" for r in reqs), f"{tag}: unfinished")
+        mirrors_hold(tag, [eng])
+        runs[tp] = [list(r.generated) for r in reqs]
+        log(f"{tag}: 8 requests, {eng.stats.steps} steps in {wall:.2f} s "
+            f"(captures included), launches {json.dumps(launches)}; on "
+            f"{name}")
+    for n in ("k", "v"):
+        copies = [kv[n] for kv in eng.kv]
+        check(all(torch.equal(c, copies[0]) for c in copies[1:]),
+              f"(l): the shards' arena copies of {n} differ")
+    check(runs[4] == runs[1], f"(l): TP=4 tokens differ from TP=1's "
+          f"({prefix_equal(runs[4], runs[1])})")
+    log(f"(l) olmo-1b Hq=6 Hkv=3 float32: TP=4 (the attention block whole "
+        f"on every shard) tokens == TP=1's ({sum(map(len, runs[1]))} "
+        f"tokens), the 4 arena copies bitwise equal")
+    del eng, params
+
+
+def examples_phase(name):
+    """Phase (m): the port's four examples on the card (module
+    docstring).  Nothing here is caught."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    import reclaim_demo_torch
+    import serve_paged_torch
+    import train_lm_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = reduced(get_config("olmo-1b")).n_layers
+
+    def no_launches(tag):
+        got = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+        check(not any(got.values()), f"{tag}: kernels launched: {got}")
+
+    s, wall = timed(quickstart_torch.host_layer_demo)
+    log(f"examples quickstart host layer: warnings {s['warnings_fired']}, "
+        f"restarts {s['reader_restarts']}, freed {s['nodes_freed']}, "
+        f"{wall:.2f} s")
+    reset_launches()
+    (reqs, reqs2), wall = timed(quickstart_torch.serving_demo)
+    engines = [reqs[0]._engine, reqs2[0]._engine]
+    read_launches("examples quickstart serving", L,
+                  sum(e.stats.steps for e in engines))
+    mirrors_hold("examples quickstart serving", engines)
+    log(f"examples quickstart serving: tokens "
+        f"{[e.stats.tokens_committed for e in engines]}, steps "
+        f"{[e.stats.steps for e in engines]}, preemptions "
+        f"{engines[0].stats.preemptions}, prefix hits "
+        f"{engines[1].stats.prefix_hits}, {wall:.2f} s; on {name}")
+    reset_launches()
+    out, wall = timed(quickstart_torch.train_demo)
+    no_launches("examples quickstart train")
+    # uniform random tokens (the JAX demo's data source): nothing to learn,
+    # the loss stays near ln V; train_lm's ramp data must lower it
+    losses = [h["loss"] for h in out["history"]]
+    ln_v = math.log(reduced(get_config("olmo-1b")).vocab)
+    check(all(abs(x - ln_v) < 0.1 for x in losses), f"examples quickstart "
+          f"train: losses {losses} not within 0.1 of ln V = {ln_v:.4f}")
+    log(f"examples quickstart train: 40 steps on random tokens, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (ln V {ln_v:.4f}), "
+        f"{wall:.2f} s; on {name}")
+
+    reset_launches()
+    runs, wall = timed(serve_paged_torch.demo)
+    read_launches("examples serve_paged", L,
+                  sum(st.steps for st in runs.values()))
+    for what, st in runs.items():
+        log(f"examples serve_paged {what}: {st.tokens_committed} tokens in "
+            f"{st.steps} steps, preemptions {st.preemptions}, restarts "
+            f"{st.reader_restarts}, prefix hits {st.prefix_hits}")
+    log(f"examples serve_paged: four workloads in {wall:.2f} s; on {name}")
+
+    reset_launches()
+    out, wall = timed(train_lm_torch.run)
+    no_launches("examples train_lm")
+    losses = [h["loss"] for h in out["history"]]
+    log(f"examples train_lm: 300 steps, 1 injected failure, "
+        f"{out['restarts']} restart, loss {losses[0]:.4f} -> "
+        f"{out['final_loss']:.4f}, {wall:.2f} s; on {name}")
+
+    rows, wall = timed(reclaim_demo_torch.strategy_rows)
+    for r in rows:
+        check(r[3] > 0 and r[4] == 16, f"examples reclaim_demo {r[0]}: "
+              f"{r[3]} superblocks released, {r[4]} reads")
+    keep = next(r for r in rows if r[0] == "keep")
+    check(keep[2] >= 0.9 * keep[1], f"examples reclaim_demo keep: "
+          f"{keep[2]} of {keep[1]} KiB resident after the deletes")
+    log(f"examples reclaim_demo strategies (name, peak KiB, after KiB, "
+        f"superblocks released, reads): {rows}, {wall:.2f} s")
+    reset_launches()
+    pool, wall = timed(reclaim_demo_torch.device_pool_demo)
+    read_launches("examples reclaim_demo device pool", 1, pool["steps"])
+    check(pool["after shrink"][0] < pool["after burst"][0]
+          and pool["remapped"] > 0, f"examples reclaim_demo: {pool}")
+    log(f"examples reclaim_demo device pool (mapped, resident superblocks, "
+        f"mapped pages): {pool}, {wall:.2f} s; on {name}")
 
 
 def fleet_requests(cfg):
@@ -4529,6 +4698,7 @@ def main() -> int:
     moe_layout_phase(results, name, moe_tp)
     tp_phase(results, name, "paligemma-3b")
     walls = fleet_phase(name)
+    heads_tp4_phase(name)
     measured = {}
     models_phase(name, measured)
     train_phase(name, measured)
@@ -4536,6 +4706,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     pool_api_phase(card)
     host_layer_phase(card)
+    examples_phase(name)
     if "--profile" in sys.argv[1:]:
         profile_phase(name)
         profile_phase(name, tp=TP)

@@ -42,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_list, resolve_device
 from .allocator import AllocatorView
 from .vm import ReleaseStrategy
 
@@ -553,7 +553,8 @@ class DevicePagePool:
     superblock anchors, which move only at the ``release``/``map`` sync
     points, so :meth:`view` never costs a transfer.  The allowed sync
     points (``alloc``, ``share``, ``release``, ``map``) read their small
-    results back with ``.cpu()``; ``free`` and ``snapshot`` never read.
+    results back (``device.host_list``: through pinned memory on a card);
+    ``free`` and ``snapshot`` never read.
     """
 
     def __init__(self, num_pages: int,
@@ -587,7 +588,7 @@ class DevicePagePool:
         exhaustion ``ok`` is False, nothing changes and ``ids`` is empty.
         An allowed sync point: one read of the grant and its flag."""
         self.state, pages, ok = _alloc_pages_impl(self.state, n)
-        out = torch.cat([ok.to(torch.int32).reshape(1), pages]).cpu().tolist()
+        out = host_list(torch.cat([ok.to(torch.int32).reshape(1), pages]))
         if not out[0]:
             return [], False
         return out[1:], True
@@ -607,7 +608,7 @@ class DevicePagePool:
         the increment) if any id named a FREE page.  Reads the flag —
         sharing happens at admission, an allowed sync point."""
         self.state, ok = _share_pages_impl(self.state, self._ids(pages))
-        return bool(ok.cpu())
+        return bool(host_list(ok.reshape(1))[0])
 
     def release(self, keep_superblocks: int) -> tuple[int, int]:
         """Take EMPTY superblocks above the floor out of circulation and
@@ -617,7 +618,7 @@ class DevicePagePool:
             return 0, 0
         self.state, n_sb, n_pg = _release_empty_impl(
             self.state, self.superblocks_total, max(0, keep_superblocks))
-        got_sb, got_pg = torch.stack([n_sb, n_pg]).cpu().tolist()
+        got_sb, got_pg = host_list(torch.stack([n_sb, n_pg]))
         self.superblocks_mapped -= got_sb
         self.superblocks_released += got_sb
         self.pages_mapped -= got_pg
@@ -630,7 +631,7 @@ class DevicePagePool:
             return 0, 0
         self.state, n_sb, n_pg = _map_superblocks_impl(self.state,
                                                        n_superblocks)
-        got_sb, got_pg = torch.stack([n_sb, n_pg]).cpu().tolist()
+        got_sb, got_pg = host_list(torch.stack([n_sb, n_pg]))
         self.superblocks_mapped += got_sb
         self.superblocks_remapped += got_sb
         self.pages_mapped += got_pg

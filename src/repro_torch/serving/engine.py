@@ -48,6 +48,20 @@ from .scheduler import Request, Scheduler  # noqa: F401  (re-export)
 from .stats import EngineStats
 
 
+class ServingStats(EngineStats):
+    """``EngineStats`` — the reference's counters, a drift-checked copy in
+    ``stats.py`` — and the port's own counter, a class attribute rather
+    than a dataclass field, so the counters held field by field against
+    the reference's, and summed over a fleet, stay the reference's."""
+
+    #: steps run eagerly because their graph was missing while the fleet
+    #: held captures behind a stalled replica (``runner.py``)
+    eager_steps_held: int = 0
+
+    def record_eager_step_held(self) -> None:
+        self.eager_steps_held += 1
+
+
 class PagedServingEngine:
     """Continuous-batching LM serving on the refcounted, versioned page pool
     (module docstring; knobs match the historical constructor)."""
@@ -119,7 +133,7 @@ class PagedServingEngine:
             model = (params if isinstance(params, DecoderLM)
                      else DecoderLM(cfg, params))
             self.params = model.placed(self.device)
-        self.stats = EngineStats()
+        self.stats = ServingStats()
         allocator = DevicePagePool(num_pages, pages_per_superblock,
                                    release_strategy, device=self.device)
         if chaos is not None:
@@ -152,7 +166,7 @@ class PagedServingEngine:
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,
-            mesh=self.mesh)
+            mesh=self.mesh, stats=self.stats)
         self.scheduler = Scheduler(
             self.kv_manager, self.stats, num_pages=num_pages,
             page_size=page_size, max_batch=max_batch,

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.allocator import Allocator
-from repro_torch.device import resolve_device
+from repro_torch.device import host_list, resolve_device
 from .stats import EngineStats
 
 
@@ -154,9 +154,10 @@ class KVCacheManager:
         return self.slots.index(None)
 
     def row_pages(self, slot: int) -> list[int]:
-        """The slot's mapped page ids, materialised to host ints (finish /
-        donation are allowed sync points)."""
-        return self._bt[slot].tolist()
+        """The slot's block-table row as host ints, −1 padding included
+        (finish / donation are allowed sync points; on a card read through
+        pinned memory, ``device.host_list``)."""
+        return host_list(self._bt[slot])
 
     def ensure_prompt_cap(self, n: int) -> None:
         """Widen the prompt buffer to hold ``n`` tokens (doubling): a new

@@ -26,7 +26,12 @@ slab that straddles KV-head groups, the slab padded here with zero heads
 to whole groups for its launch, :func:`pad_window` — and the shards
 reading one head compute the same K/V and append them to their own
 copies), and the model
-one ``DecoderLM`` of weight slices per shard (``sharding/rules.py``).  The pool, the grant, COW
+one ``DecoderLM`` of weight slices per shard (``sharding/rules.py``).
+Where T does not divide the query heads (``sharding/rules.py::
+heads_split``) the attention block is whole on every shard: each projects
+all heads, appends to its whole copy of the arena and attends over all
+query heads in its launch, and the lead's output alone enters the
+residual (the copies stay bitwise equal).  The pool, the grant, COW
 planning, token routing, selection and OA validation run once, on the lead
 device — the reference replicates them and every shard computes the same
 values, so one copy is the same single logical pool.  Per layer each shard
@@ -70,7 +75,7 @@ from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (DECODER_FAMILIES, embed_tokens,
                                             unembed)
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.sharding.rules import (ROW_BIASES, check_heads, kv_heads,
+from repro_torch.sharding.rules import (ROW_BIASES, heads_split, kv_heads,
                                         lm_head_split, mlp_split, moe_axis,
                                         query_window)
 
@@ -83,14 +88,13 @@ def kv_storage_init(cfg, num_pages: int, page_size: int,
     With ``mesh``: a list of T contiguous slabs [L, P, page, h, D], shard
     s's holding its KV heads (``sharding.rules.kv_heads``: ``[s·Hkv/T,
     (s+1)·Hkv/T)`` where T divides Hkv, those its query slab reads
-    otherwise) of every page on ``mesh.devices[s]``.  Heads the mesh cannot
-    serve raise ``ValueError`` (``sharding.rules.check_heads``)."""
+    otherwise, all of them where T does not divide the query heads) of
+    every page on ``mesh.devices[s]``."""
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     if mesh is None:
         dev = resolve_device(device)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    check_heads(cfg, mesh.tp)
     slabs = []
     for s, d in enumerate(mesh.devices):
         local = shape[:3] + (kv_heads(cfg, mesh.tp, s)[1], cfg.head_dim)
@@ -109,8 +113,9 @@ def max_chunk_pages(chunk_size: int, page_size: int) -> int:
 @functools.cache
 def _local_cfg(cfg, tp: int, s: int = 0):
     """The config shard ``s`` of ``tp`` computes its heads with: its query
-    heads, and its KV heads (``sharding.rules.kv_heads``)."""
-    if tp == 1:
+    heads, and its KV heads (``sharding.rules.kv_heads``); all heads where
+    the attention block is not split."""
+    if tp == 1 or not heads_split(cfg, tp):
         return cfg
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
                                n_kv_heads=kv_heads(cfg, tp, s)[1])
@@ -223,6 +228,9 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     devs = mesh.devices
     lcfgs = [_local_cfg(cfg, mesh.tp, s) for s in range(mesh.tp)]
     windows = [query_window(cfg, mesh.tp, s) for s in range(mesh.tp)]
+    # shards whose attention outputs are partial sums; a block that is not
+    # split is whole on every shard, and the lead's output is the output
+    n_attn = mesh.tp if heads_split(cfg, mesh.tp) else 1
     positions = lengths.to(torch.int64)[:, None] + torch.arange(
         C, device=dev)[None, :]
     x = embed_tokens(cfg, shards[0].embed, tokens.to(torch.int64), positions)
@@ -253,8 +261,8 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
             append=(kns, vns, oks))
         x = x + _reduce([window_heads(a, w, lc.n_heads).reshape(B, C, -1)
                          @ blk.attn["wo"]
-                         for a, w, lc, blk in zip(atts, windows, lcfgs, blks)],
-                        dev)
+                         for a, w, lc, blk in zip(atts, windows, lcfgs, blks)
+                         ][:n_attn], dev)
         h2 = apply_norm(cfg, x, blks[0].ln2)
         x = x + _ffn(cfg, blks, mesh, h2, dev)
     return apply_norm(cfg, x, shards[0].final_norm), kv

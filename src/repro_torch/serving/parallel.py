@@ -68,6 +68,18 @@ greedy decoding makes the stitched output token-exact
 (``Request.output_tokens``) — and, with ``auto_revive``, the dead slot
 gets a fresh engine (the kernels are already loaded, so revival builds
 nothing) and the backlog is rebalanced over the enlarged fleet.
+
+**After a stall, on a card.**  An abandoned driver thread may still be
+blocked in its step's read, its stream asleep or wedged.  Nothing the
+supervisor or a survivor waits on may then wait for that stream: every
+read of the port goes through pinned memory and a stream wait
+(``device.host_list``, ``ModelRunner.collect``), never pageable memory,
+which would hold up every thread's CUDA calls; and no round captures a
+graph until an event recorded on the failed replica's stream at its
+failover has completed, since an instantiation can wait for the stalled
+stream.  Until then a step whose graph is missing — the revived
+replica's, a survivor's over a widened prompt buffer — runs the eager
+step, the same kernels, and is counted (``eager_steps_held``).
 """
 
 from __future__ import annotations
@@ -168,6 +180,9 @@ class DataParallelEngine:
         self.step_hooks: list = [None] * replicas
         self._retired: list[EngineStats] = []  # stats of replaced engines
         self._wall = 0.0
+        #: an event recorded on each failed replica's stream at its
+        #: failover, kept until it completes (:meth:`_drive_round`)
+        self._abandoned: list = []
 
     def _placement_for(self, i: int) -> dict:
         """Replica ``i``'s device placement kwargs: one device (tp=1, the
@@ -342,17 +357,25 @@ class DataParallelEngine:
     def _drive_round(self, max_steps: int) -> bool:
         """One supervised round: drive every live replica that has work to
         a clean drain, a failure, or a stall.  Returns True iff a failover
-        happened and the backlog needs another round."""
+        happened and the backlog needs another round.  While the work a
+        failed replica left on its stream has not ended (its event at the
+        failover), the round captures nothing: each runner holds its
+        captures (``runner.py``), and a step whose graph is missing runs
+        eagerly."""
         workers = [i for i in range(len(self.replicas))
                    if self.alive[i] and (self.replicas[i].scheduler.queue
                                          or self.replicas[i].scheduler.running)]
         if not workers:
             return False
+        self._abandoned = [ev for ev in self._abandoned if not ev.query()]
+        held = bool(self._abandoned)
         runners = []
         for i in workers:  # every graph of the round, before the threads
             eng = self.replicas[i]
-            with self._on(i):
-                eng._prepare_graphs()
+            eng.runner.hold_captures = held
+            if not held:
+                with self._on(i):
+                    eng._prepare_graphs()
             runners.append(eng.runner)
         for r in runners:
             r.frozen = True
@@ -360,7 +383,7 @@ class DataParallelEngine:
             return self._supervise(workers, max_steps)
         finally:
             for r in runners:
-                r.frozen = False
+                r.frozen = r.hold_captures = False
 
     def _supervise(self, workers: list[int], max_steps: int) -> bool:
         """Start a driver thread per worker and watch them (the body of
@@ -456,6 +479,8 @@ class DataParallelEngine:
         self.alive[i] = False
         eng = self.replicas[i]
         eng.stats.record_replica_failure()
+        if self.streams[i] is not None:  # what the replica left enqueued
+            self._abandoned.append(self.streams[i].record_event())
         if not any(self.alive):
             raise err
         doomed = list(eng.scheduler.running) + list(eng.scheduler.queue)
@@ -543,6 +568,13 @@ class DataParallelEngine:
         return aggregate_stats(
             [e.stats for e in self.replicas] + self._retired,
             self._wall if self._wall > 0 else None)
+
+    @property
+    def eager_steps_held(self) -> int:
+        """Steps the fleet's engines, retired ones included, ran eagerly
+        while captures were held (:meth:`_drive_round`)."""
+        return sum(s.eager_steps_held for s in self.per_replica_stats
+                   + self._retired)
 
     @property
     def per_replica_stats(self) -> list[EngineStats]:

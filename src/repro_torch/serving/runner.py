@@ -57,6 +57,14 @@ fails raises — the card never falls back to the eager step.  Kernel
 launches recorded by a capture are counted at each replay
 (``kernels/build.py::count_replay``), the dry step's as it runs.
 
+**Held captures.**  While a fleet replica stalled on the card may still
+have work on its stream, the fleet holds captures
+(:attr:`ModelRunner.hold_captures`): a graph's instantiation can wait
+until that stream wakes (a revived replica's ``capture_end`` did,
+``tools/stall_probe.py``), so a step whose key has no graph runs the
+eager step — the same kernels, bitwise the graph's — and is counted;
+keys already captured still replay.
+
 The rule: graphs serve wherever every tensor of the step lies on one card
 — without a mesh, or with every shard of the mesh on one card (one
 single-device graph).  A mesh over several cards, and the CPU, run the
@@ -142,7 +150,7 @@ class ModelRunner:
 
     def __init__(self, cfg, model, *, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0,
-                 pages_per_compute_block: int = 1, mesh=None):
+                 pages_per_compute_block: int = 1, mesh=None, stats=None):
         self.cfg = cfg
         self.model = model
         self.greedy = greedy
@@ -158,6 +166,12 @@ class ModelRunner:
         #: set while a fleet's driver threads run: a step whose graph was
         #: not captured before they started raises instead of capturing
         self.frozen = False
+        #: set by a fleet while a stalled replica's stream may still run
+        #: (``serving/parallel.py``): a step whose graph is missing runs
+        #: eagerly, counted in ``stats.eager_steps_held``, and nothing is
+        #: captured — an instantiation can wait for that stream
+        self.hold_captures = False
+        self.stats = stats
         #: captured steps by key (chunk size, speculative, validate, width)
         self.step_graphs: dict[tuple, StepGraph] = {}
         self._pool = None  # the graphs' static pool
@@ -229,7 +243,11 @@ class ModelRunner:
         st = kvm.step_state()
         key = (chunk_size, drafts is not None, bool(do_validate),
                st.prompt_buf.shape[1])
-        if not self.graphs:
+        held = (self.graphs and self.hold_captures
+                and key not in self.step_graphs)
+        if held:
+            self.stats.record_eager_step_held()
+        if not self.graphs or held:
             draft_toks = draft_lens = None
             if drafts is not None:
                 draft_toks, draft_lens = (

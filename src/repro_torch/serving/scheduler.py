@@ -135,7 +135,7 @@ class Request:
         eng, slot = self._engine, self.slot
         if slot is None or eng is None or eng._slots[slot] is not self:
             return []
-        row = eng._bt[slot].tolist()  # a CPU or CUDA tensor row
+        row = eng.kv_manager.row_pages(slot)  # pinned on a card
         if self.slot != slot or eng._slots[slot] is not self:
             return []  # cleared mid-read: stale row, report nothing
         return [int(p) for p in row if p >= 0]

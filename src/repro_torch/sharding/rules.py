@@ -50,8 +50,13 @@ one head hold equal copies of it; where a slab straddles KV-head groups
 (e.g. Hq=6, Hkv=3 at T=2: shard 0 heads 0-1, shard 1 heads 1-2) the
 neighbours hold equal copies of the head they share, and the shard's
 launch takes its query slab padded with zero heads to whole groups
-(:func:`query_window`).  The one layout refused is a query head count T
-does not divide (:func:`check_heads`), which the reference serves.
+(:func:`query_window`).  Where T does not divide the query heads (e.g.
+Hq=6, Hkv=3 at T=4) the attention block is not split at all
+(:func:`heads_split`): every shard holds the whole of ``wq``/``wk``/``wv``/
+``wo`` and their biases and a whole copy of the arena, and attends over
+all query heads — the reference leaves unsplit what 'model' does not
+divide and replicates such an arena, and the sharded step replicates
+attention there too.  No head layout is refused.
 
 The sharded step (``launch/steps.py::sharded``) runs the same rules on a
 ``DeviceMesh`` of the same axis names: :func:`placements` turns a spec into
@@ -831,12 +836,21 @@ def kv_split(cfg, tp: int) -> bool:
         (1, 1, 1, cfg.n_kv_heads, cfg.head_dim), tp) is not None
 
 
+def heads_split(cfg, tp: int) -> bool:
+    """Whether the attention block splits over ``tp`` shards by query slab
+    ``[s·Hq/T, (s+1)·Hq/T)``: T divides Hq.  Where it does not, nothing of
+    the block is split (module docstring): every shard attends over all
+    query heads on a whole copy of the arena, and the lead's output enters
+    the residual."""
+    return tp <= 1 or cfg.n_heads % tp == 0
+
+
 def kv_heads(cfg, tp: int, s: int) -> tuple[int, int]:
     """(first, count) of the KV heads shard ``s`` of ``tp`` holds: those
     its query slab ``[s·slab, (s+1)·slab)`` reads, ``slab = Hq/T``, with
-    ``g = Hq/Hkv`` query heads a KV head: ``[⌊s·slab/g⌋, ⌈(s+1)·slab/g⌉)``
-    (:func:`check_heads` must pass)."""
-    if tp <= 1:
+    ``g = Hq/Hkv`` query heads a KV head: ``[⌊s·slab/g⌋, ⌈(s+1)·slab/g⌉)``;
+    all of them where the block is not split (:func:`heads_split`)."""
+    if tp <= 1 or not heads_split(cfg, tp):
         return 0, cfg.n_kv_heads
     slab = cfg.n_heads // tp
     group = cfg.n_heads // cfg.n_kv_heads
@@ -852,7 +866,10 @@ def query_window(cfg, tp: int, s: int) -> tuple[int, int]:
     or lies within one, that is the slab itself, ``(0, slab)``; where it
     straddles groups (Hq=6, Hkv=3 at T=2: heads 0,1,2 read KV 0,0,1) the
     launch takes ``count·g`` heads, the slab's own at ``s·slab − first·g``
-    and zero heads around them, and the caller slices its heads back."""
+    and zero heads around them, and the caller slices its heads back.
+    Where the block is not split (:func:`heads_split`), all query heads."""
+    if not heads_split(cfg, tp):
+        return 0, cfg.n_heads
     first, count = kv_heads(cfg, tp, s)
     slab = cfg.n_heads // max(tp, 1)
     group = cfg.n_heads // cfg.n_kv_heads
@@ -881,10 +898,13 @@ def split_axis(cfg, name: str, shape, tp: int, group: str | None = None,
     :func:`param_specs` ``(serving=True)`` puts on 'model' of a ``(1, tp)``
     mesh, or None when it is replicated.  The K/V projections are the
     deviation: None unless :func:`kv_split` (:func:`param_shards` then
-    cuts them by :func:`kv_heads`)."""
+    cuts them by :func:`kv_heads`); so is the attention block where it is
+    not split (:func:`heads_split`): None."""
     if tp <= 1 or not shape:
         return None
     if name in _KV and not kv_split(cfg, tp):
+        return None
+    if group == "attn" and not heads_split(cfg, tp):
         return None
     names = [name] if group is None else ["blocks", group, name]
     return _model_axis(leaf_spec(cfg, names, shape, _serving_mesh(tp),
@@ -930,20 +950,6 @@ def paged_kv_axis(shape, tp: int) -> int | None:
                                    _serving_mesh(tp), paged=True)["k"])
 
 
-def check_heads(cfg, tp: int) -> None:
-    """Raise ``ValueError`` unless ``tp`` shards can each attend on their
-    query slab ``[s·Hq/T, (s+1)·Hq/T)``: T must divide Hq.  Each shard then
-    holds the contiguous KV heads its slab reads (:func:`kv_heads`) — whole
-    KV-head groups, one head, or the heads of a slab that straddles groups,
-    whose launch pads it (:func:`query_window`)."""
-    if tp <= 1:
-        return
-    hq = cfg.n_heads
-    if hq % tp:
-        raise ValueError(f"n_heads={hq} is not divisible by tensor_parallel="
-                         f"{tp}: the query heads cannot split")
-
-
 def _shard_leaf(cfg, path, t, mesh, s):
     group = path[-2] if len(path) > 1 else None
     name = path[-1]
@@ -971,8 +977,7 @@ def param_shards(cfg, params, mesh) -> list[dict]:
     """Split ``params`` (a ``DecoderLM`` or its nested dicts, blocks a list
     of per-layer dicts) into ``mesh.tp`` nested dicts of the same
     structure, shard s's slices on ``mesh.devices[s]``; the experts as
-    ``mesh.moe_shard`` lays them out (the engine refuses head counts that
-    :func:`check_heads` refuses)."""
+    ``mesh.moe_shard`` lays them out."""
     from repro_torch.models.transformer import DECODER_FAMILIES
 
     if cfg.family not in DECODER_FAMILIES:

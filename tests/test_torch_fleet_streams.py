@@ -2,7 +2,10 @@
 
 On the CPU (every test without the ``cuda`` marker): a replica has no
 stream and the fleet's CPU path is what it was — ``step()`` and ``run()``
-generate one engine's tokens.  On the card (marker ``cuda``; they skip
+generate one engine's tokens; the reads a card makes through pinned
+memory give the lists they gave; and while a failed replica's stream may
+still run, a round captures nothing and runs each missing graph's step
+eagerly, counted, while a failed capture still raises.  On the card (marker ``cuda``; they skip
 elsewhere): each replica's stream is its own and not the default stream,
 and a revived replica gets a new one, never a stream the fleet holds; a
 failed capture leaves the current stream as it was; each replica's graphs
@@ -83,6 +86,84 @@ def test_cpu_fleet_has_no_streams(mode):
     fleet.alive[0] = False
     fleet.revive(0)
     assert fleet.streams == [None, None]
+
+
+def test_cpu_reads_give_the_lists_they_gave():
+    """On the CPU the reads that go through pinned memory on a card
+    (``device.host_list``: ``KVCacheManager.row_pages``, ``Request.pages``,
+    the pool's sync points) give what ``.tolist()`` gave."""
+    from repro_torch.device import host_list
+
+    cfg, params, prompts = _setup("cpu")
+    eng = PagedServingEngine(cfg, params, device="cpu", **KW)
+    reqs = [eng.submit(p, 6) for p in prompts[:3]]
+    eng.scheduler.admit()
+    for _ in range(3):
+        eng.step()
+    kvm = eng.kv_manager
+    t = torch.arange(-2, 5, dtype=torch.int32)
+    assert host_list(t) == t.tolist() and host_list(t[:0]) == []
+    for r in reqs:
+        row = kvm._bt[r.slot].tolist()
+        assert kvm.row_pages(r.slot) == row
+        assert r.pages == [p for p in row if p >= 0] and r.pages
+    got, ok = kvm.allocator.alloc(2)
+    assert ok and len(got) == 2 and kvm.allocator.share(got)
+
+
+class _Event:
+    """A stand-in for the event a fleet records on a failed replica's
+    stream: ``query()`` is True once that stream's work has ended."""
+
+    def __init__(self, done):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+def _held_fleet(monkeypatch, done):
+    """A CPU fleet whose runners take the graph path (``graphs = True``)
+    with every capture raising, and one abandoned stream's event, ended
+    or not."""
+    cfg, params, prompts = _setup("cpu")
+
+    def capture(self, kvm, key):
+        raise RuntimeError(f"capture of {key}")
+    monkeypatch.setattr(ModelRunner, "capture", capture)
+    fleet = DataParallelEngine(cfg, params, replicas=2,
+                               devices=["cpu", "cpu"], **KW)
+    for e in fleet.replicas:
+        e.runner.graphs = True
+    fleet._abandoned = [_Event(done)]
+    return cfg, params, prompts, fleet
+
+
+def test_cpu_fleet_holds_captures_while_an_abandoned_stream_runs(
+        monkeypatch):
+    """While the event of a failed replica's stream has not completed, a
+    round captures nothing: every step whose graph is missing runs the
+    eager step, counted, and the fleet generates one engine's tokens."""
+    cfg, params, prompts, fleet = _held_fleet(monkeypatch, done=False)
+    reqs = [fleet.submit(p, 6) for p in prompts]
+    fleet.run()
+    assert all(r.state == "finished" for r in reqs)
+    assert fleet.eager_steps_held == fleet.stats.steps > 0
+    assert all(not e.runner.hold_captures for e in fleet.replicas)
+    assert [list(r.generated) for r in reqs] == _one_engine(
+        cfg, params, prompts, "cpu")
+
+
+def test_cpu_fleet_captures_once_the_abandoned_stream_ended(monkeypatch):
+    """Once that event has completed the round captures its graphs first,
+    and a capture that fails raises: nothing turns it into an eager
+    step."""
+    _, _, prompts, fleet = _held_fleet(monkeypatch, done=True)
+    for p in prompts:
+        fleet.submit(p, 6)
+    with pytest.raises(RuntimeError, match="capture of"):
+        fleet.run()
+    assert fleet._abandoned == [] and fleet.eager_steps_held == 0
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """Layering of the PyTorch port: it never imports jax or the JAX package.
 
-An AST lint over every file of ``src/repro_torch`` and ``chip_smoke.py``,
+An AST lint over every file of ``src/repro_torch``, ``chip_smoke.py`` and
+the port's examples (``examples/*_torch.py``),
 an import of every port module in a child process where ``jax`` and
 ``repro`` cannot be imported, and the device rule: with no GPU and no
 explicit ``device=``, the entry points raise instead of falling back to
@@ -19,7 +20,8 @@ torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+              + sorted((REPO / "examples").glob("*_torch.py")))
 
 
 def _imports(path: pathlib.Path) -> set[str]:

@@ -40,7 +40,7 @@ from repro_torch.kernels.ops import paged_attention
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.serving import PagedServingEngine
-from repro_torch.sharding.rules import (check_heads, kv_heads, kv_join,
+from repro_torch.sharding.rules import (heads_split, kv_heads, kv_join,
                                         moe_axis, param_shards, query_window)
 from split_cases import append_case
 from test_torch_zoo import MARGIN_TOL, WORKLOADS, ZOO, _hold, _record, _waves
@@ -214,11 +214,12 @@ def test_moe_modes_match_reference_tp2(moe_weights, reference, monkeypatch,
 
 
 def test_straddling_query_slabs_are_refused():
-    """No KV-head layout is refused any more: a slab within one group, a
-    whole number of groups and a slab that straddles groups are all
-    served (the straddling one over the heads it reads, its launch padded
-    to whole groups); only a query head count T does not divide is
-    refused."""
+    """No head layout is refused any more: a slab within one group, a
+    whole number of groups and a slab that straddles groups are split by
+    query slab (the straddling one over the heads it reads, its launch
+    padded to whole groups); a query head count T does not divide leaves
+    the attention block whole on every shard, over all query heads and a
+    whole copy of the arena."""
     cfg = treduced(tget("olmo-1b"))
     for heads, tp in ((dict(n_heads=8, n_kv_heads=2), 4),
                       (dict(n_heads=8, n_kv_heads=2), 8),
@@ -226,9 +227,12 @@ def test_straddling_query_slabs_are_refused():
                       (dict(n_heads=8, n_kv_heads=1), 4),
                       (dict(n_heads=6, n_kv_heads=3), 2),
                       (dict(n_heads=12, n_kv_heads=3), 4)):
-        check_heads(dataclasses.replace(cfg, **heads), tp)
-    with pytest.raises(ValueError, match="not divisible"):
-        check_heads(dataclasses.replace(cfg, n_heads=6, n_kv_heads=3), 4)
+        assert heads_split(dataclasses.replace(cfg, **heads), tp)
+    whole = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    assert not heads_split(whole, 4)
+    assert [kv_heads(whole, 4, s) for s in range(4)] == [(0, 3)] * 4
+    assert [query_window(whole, 4, s) for s in range(4)] == [(0, 6)] * 4
+    assert kv_join(whole, 4) == ((0, 0),)
     c = dataclasses.replace(cfg, **GQA_HEADS)
     assert [kv_heads(c, 4, s) for s in range(4)] == [(0, 1)] * 2 + [(1, 1)] * 2
     assert kv_join(c, 4) == ((0, 0), (2, 0))

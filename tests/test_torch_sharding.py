@@ -24,7 +24,7 @@ from repro_torch.configs import get_config as tget, reduced as treduced
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.transformer import init_decoder_lm
 from repro_torch.serving import kv_storage_init
-from repro_torch.sharding.rules import (check_heads, kv_split, lm_head_split,
+from repro_torch.sharding.rules import (heads_split, kv_split, lm_head_split,
                                         mlp_split, moe_split, param_shards,
                                         paged_kv_axis)
 
@@ -156,8 +156,9 @@ def test_kv_storage_init_gives_one_contiguous_slab_per_shard():
                                      cfg.head_dim)
             assert slab[n].is_contiguous() and slab[n].dtype == torch.bfloat16
             assert slab[n].numel() * 2 == full[n].numel()
-    with pytest.raises(ValueError, match="not divisible"):
-        kv_storage_init(cfg, 8, 4, mesh=make_serving_mesh(3, ["cpu"] * 3))
+    # 3 shards do not divide the 4 query heads: a whole copy each
+    whole = kv_storage_init(cfg, 8, 4, mesh=make_serving_mesh(3, ["cpu"] * 3))
+    assert [s["k"].shape for s in whole] == [full["k"].shape] * 3
 
 
 def test_make_serving_mesh(monkeypatch):
@@ -232,14 +233,15 @@ def test_mqa_kv_projections_stay_whole(arch, small):
         elif ax is not None:
             shape[ax] //= 2
         assert tuple(blk[g][n].shape) == tuple(shape), (g, n)
-    check_heads(tc, 2)  # the query heads split; the one KV head is whole
+    assert heads_split(tc, 2)  # the query heads split; the KV head whole
 
 
 def test_kv_storage_init_replicates_an_arena_the_mesh_does_not_divide():
     """MQA over two shards: each shard gets a whole [L, P, page, Hkv, D]
     copy of its own (the reference's replicated layout); a query slab that
     straddles two KV-head groups (Hkv=3 at T=2) gets the two heads it
-    reads; a query head count the mesh does not divide raises."""
+    reads; a query head count the mesh does not divide gets a whole copy
+    on every shard."""
     cfg = treduced(tget("granite-20b"))
     full = kv_storage_init(cfg, 8, 4, device="cpu")
     copies = kv_storage_init(cfg, 8, 4, mesh=make_serving_mesh(2, ["cpu"] * 2))
@@ -252,6 +254,6 @@ def test_kv_storage_init_replicates_an_arena_the_mesh_does_not_divide():
         dataclasses.replace(cfg, n_kv_heads=3, n_heads=6), 8, 4,
         mesh=make_serving_mesh(2, ["cpu"] * 2))
     assert [s["k"].shape[3] for s in straddle] == [2, 2]
-    with pytest.raises(ValueError, match="not divisible"):
-        kv_storage_init(dataclasses.replace(cfg, n_heads=6), 8, 4,
-                        mesh=make_serving_mesh(4, ["cpu"] * 4))
+    whole = kv_storage_init(dataclasses.replace(cfg, n_heads=6), 8, 4,
+                            mesh=make_serving_mesh(4, ["cpu"] * 4))
+    assert [s["k"].shape for s in whole] == [full["k"].shape] * 4

@@ -18,8 +18,8 @@ groups for its one launch (``sharding/rules.py::query_window``).
   counter, block tables and clock equal; the joined arena within 2e-2 of
   the reference's (the bf16 arena, as the TP tests state it); both
   shards' copies of the shared head bitwise equal;
-- the rules: the heads each shard holds, its query window, and the one
-  layout still refused (T not dividing Hq).
+- the rules: the heads each shard holds and its query window, and where
+  T does not divide Hq (T=4) the whole block on every shard.
 """
 
 import dataclasses
@@ -43,7 +43,7 @@ from repro_torch.kernels.ops import paged_attention
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serving import PagedServingEngine
 from repro_torch.serving.paged_decode import pad_window, window_heads
-from repro_torch.sharding.rules import (check_heads, kv_heads, kv_join,
+from repro_torch.sharding.rules import (heads_split, kv_heads, kv_join,
                                         query_window)
 from split_cases import append_case
 from test_torch_moe_layouts import _min_margin_gqa
@@ -107,17 +107,20 @@ def test_straddling_rules():
     """Hq=6, Hkv=3 at T=2: shard 0 holds KV heads 0-1 and launches on its
     heads 0-2 padded to 4 (offset 0), shard 1 holds heads 1-2 and launches
     on its heads 3-5 at offset 1 of 4; the arena joins as shard 0's two
-    heads then shard 1's second.  T=4 does not divide Hq=6: refused."""
+    heads then shard 1's second.  T=4 does not divide Hq=6: the attention
+    block is not split, every shard holds all three KV heads and launches
+    on all six query heads (``tests/test_torch_heads_tp4.py``)."""
     _, tc = _configs("hq6_hkv3")
-    check_heads(tc, 2)
+    assert heads_split(tc, 2)
     assert [kv_heads(tc, 2, s) for s in range(2)] == [(0, 2), (1, 2)]
     assert [query_window(tc, 2, s) for s in range(2)] == [(0, 4), (1, 4)]
     assert kv_join(tc, 2) == ((0, 0), (1, 1))
     _, tc12 = _configs("hq12_hkv3")
     assert [kv_heads(tc12, 2, s) for s in range(2)] == [(0, 2), (1, 2)]
     assert [query_window(tc12, 2, s) for s in range(2)] == [(0, 8), (2, 8)]
-    with pytest.raises(ValueError, match="not divisible"):
-        check_heads(tc, 4)
+    assert not heads_split(tc, 4)
+    assert [kv_heads(tc, 4, s) for s in range(4)] == [(0, 3)] * 4
+    assert [query_window(tc, 4, s) for s in range(4)] == [(0, 6)] * 4
 
 
 @pytest.mark.parametrize("C", [1, 4])

@@ -345,6 +345,9 @@ def test_constructor_errors(weights):
         PagedServingEngine(tc, model, tensor_parallel=2, device="cpu", **kw)
     with pytest.raises(RuntimeError, match="needs 2 devices"):
         PagedServingEngine(tc, model, tensor_parallel=2, devices=["cpu"], **kw)
-    with pytest.raises(ValueError, match="not divisible"):
-        PagedServingEngine(tc, model, tensor_parallel=3,
-                           devices=["cpu"] * 3, **kw)
+    # no longer an error: 3 shards do not divide the query heads, so each
+    # holds the whole attention block over a whole copy of the arena
+    eng = PagedServingEngine(tc, model, tensor_parallel=3,
+                             devices=["cpu"] * 3, **kw)
+    assert eng.kv_manager.kv_replicated and len(eng.kv) == 3
+    assert all(s["k"].shape[3] == tc.n_kv_heads for s in eng.kv)
