@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.spans import current_span
+
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means CUDA, which must exist."""
@@ -27,10 +29,14 @@ def host_list(t: torch.Tensor) -> list:
     memory (``.tolist()``, ``.cpu()``) waits inside the CUDA driver, where
     it holds up every other thread's CUDA calls until this stream's work
     ends — behind a fleet replica stalled on the card, every replica; a
-    stream's wait holds up nothing but its caller."""
-    if t.device.type != "cuda":
-        return t.tolist()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return host.tolist()
+    stream's wait holds up nothing but its caller.
+
+    Each read is a ``device.read`` span of the tracer whose span is open
+    innermost on this thread, where one is (``spans.py``)."""
+    with current_span("device.read"):
+        if t.device.type != "cuda":
+            return t.tolist()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host.tolist()

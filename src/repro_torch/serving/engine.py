@@ -44,7 +44,8 @@ from repro_torch.sharding.rules import (kv_join, kv_split, moe_shard_mode,
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
 from .runner import ModelRunner
-from .scheduler import Request, Scheduler  # noqa: F401  (re-export)
+from .scheduler import PrefixIndex, Request, Scheduler  # noqa: F401
+from repro_torch.spans import new_tracer
 from .stats import EngineStats
 
 
@@ -60,6 +61,98 @@ class ServingStats(EngineStats):
 
     def record_eager_step_held(self) -> None:
         self.eager_steps_held += 1
+
+
+class TracedPrefixIndex(PrefixIndex):
+    """The prefix index with a ``prefix.evict`` span around every sweep
+    (``repro_torch/spans.py``): ``PrefixIndex`` is a drift-checked copy of
+    the reference's, so the span wraps it from outside."""
+
+    def __init__(self, page_size: int, cap: int, kvm, stats, tracer):
+        super().__init__(page_size, cap, kvm, stats)
+        self.tracer = tracer
+
+    def evict(self, need_pages: int | None = None,
+              freeable_only: bool = True) -> int:
+        with self.tracer.span("prefix.evict") as s:
+            scanned = len(self.index) + len(self.tail)
+            before = self.stats.prefix_evictions
+            freed = super().evict(need_pages, freeable_only)
+            s.set(keys_scanned=scanned,
+                  entries_evicted=self.stats.prefix_evictions - before)
+        return freed
+
+
+class TracedScheduler(Scheduler):
+    """The scheduler with a span around each call of the step protocol,
+    its prefix index traced, and a ``request.queued`` span from each
+    request's submission to its first admission
+    (``repro_torch/spans.py``).  ``Scheduler`` is a drift-checked copy of
+    the reference's, so the spans wrap it from outside."""
+
+    def __init__(self, kvm, stats, *, tracer, **kw):
+        super().__init__(kvm, stats, **kw)
+        self.tracer = tracer
+        self.index = TracedPrefixIndex(self.page_size, self.index.cap, kvm,
+                                       stats, tracer)
+        #: id(request) -> (request, submission time) until first admission
+        self._waiting: dict[int, tuple] = {}
+
+    def _queued(self, req: Request, t: float) -> None:
+        if req.state == "queued" and req.admitted_step is None:
+            self._waiting[id(req)] = (req, t)
+
+    def _admitted(self) -> None:
+        """Close the wait of the request admission last appended to the
+        running set, if this is its first admission."""
+        if self.running:
+            got = self._waiting.pop(id(self.running[-1]), None)
+            if got is not None:
+                self.tracer.add("request.queued", got[1], time.perf_counter(),
+                                rid=got[0].rid)
+
+    def submit(self, prompt, max_new_tokens, deadline=None,
+               cls="interactive") -> Request:
+        t = time.perf_counter()
+        req = super().submit(prompt, max_new_tokens, deadline=deadline,
+                             cls=cls)
+        self._queued(req, t)
+        return req
+
+    def requeue(self, req: Request) -> bool:
+        ok = super().requeue(req)
+        if id(req) not in self._waiting:  # a refused request's wait begins
+            self._queued(req, time.perf_counter())
+        return ok
+
+    def _shed_if_hopeless(self, req: Request) -> bool:
+        # called at the head of each admission: the one before it is done
+        self._admitted()
+        shed = super()._shed_if_hopeless(req)
+        if shed:
+            self._waiting.pop(id(req), None)
+        return shed
+
+    def admit(self) -> None:
+        with self.tracer.span("scheduler.admit"):
+            super().admit()
+            self._admitted()
+
+    def plan_chunk(self):
+        with self.tracer.span("scheduler.plan_chunk"):
+            return super().plan_chunk()
+
+    def plan_validate(self) -> bool:
+        with self.tracer.span("scheduler.plan_validate"):
+            return super().plan_validate()
+
+    def absorb(self, *a, **k):
+        with self.tracer.span("scheduler.absorb"):
+            return super().absorb(*a, **k)
+
+    def maintain(self) -> None:
+        with self.tracer.span("scheduler.maintain"):
+            super().maintain()
 
 
 class PagedServingEngine:
@@ -134,6 +227,8 @@ class PagedServingEngine:
                      else DecoderLM(cfg, params))
             self.params = model.placed(self.device)
         self.stats = ServingStats()
+        #: this engine's spans and counters (``repro_torch/spans.py``)
+        self.tracer = new_tracer()
         allocator = DevicePagePool(num_pages, pages_per_superblock,
                                    release_strategy, device=self.device)
         if chaos is not None:
@@ -166,9 +261,10 @@ class PagedServingEngine:
         self.runner = ModelRunner(
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,
-            mesh=self.mesh, stats=self.stats)
-        self.scheduler = Scheduler(
-            self.kv_manager, self.stats, num_pages=num_pages,
+            mesh=self.mesh, stats=self.stats, tracer=self.tracer)
+        self.scheduler = TracedScheduler(
+            self.kv_manager, self.stats, tracer=self.tracer,
+            num_pages=num_pages,
             page_size=page_size, max_batch=max_batch,
             prefix_cache=prefix_cache,
             prefix_cache_pages=prefix_cache_pages,
@@ -219,13 +315,16 @@ class PagedServingEngine:
         scheduler-overlap race; tests)."""
         if not self.scheduler.running:
             return
-        C, budget, drafts = self.scheduler.plan_chunk()
-        do_validate = self.scheduler.plan_validate()
-        res = self.runner.execute(self.kv_manager, chunk_size=C,
-                                  budget=budget, drafts=drafts,
-                                  do_validate=do_validate)
-        self.scheduler.absorb(res, C, budget, inject_preemption_of,
-                              drafts=drafts)
+        with self.tracer.span("engine.step") as span:
+            before = self.stats.tokens_committed
+            C, budget, drafts = self.scheduler.plan_chunk()
+            do_validate = self.scheduler.plan_validate()
+            res = self.runner.execute(self.kv_manager, chunk_size=C,
+                                      budget=budget, drafts=drafts,
+                                      do_validate=do_validate)
+            self.scheduler.absorb(res, C, budget, inject_preemption_of,
+                                  drafts=drafts)
+            span.set(tokens=self.stats.tokens_committed - before)
 
     def launch_step(self):
         """Enqueue one step WITHOUT collecting its host transfer; returns a
@@ -233,20 +332,31 @@ class PagedServingEngine:
         is asynchronous, so the host can plan ahead while the step runs."""
         if not self.scheduler.running:
             return None
-        C, budget, drafts = self.scheduler.plan_chunk()
-        do_validate = self.scheduler.plan_validate()
-        return (self.runner.launch(self.kv_manager, chunk_size=C,
-                                   budget=budget, drafts=drafts,
-                                   do_validate=do_validate),
-                C, budget, drafts)
+        # the step's span closes in collect_step
+        span = self.tracer.begin("engine.step")
+        before = self.stats.tokens_committed
+        try:
+            C, budget, drafts = self.scheduler.plan_chunk()
+            do_validate = self.scheduler.plan_validate()
+            pending = self.runner.launch(self.kv_manager, chunk_size=C,
+                                         budget=budget, drafts=drafts,
+                                         do_validate=do_validate)
+        except BaseException:
+            self.tracer.end(span)
+            raise
+        return pending, C, budget, drafts, (span, before)
 
     def collect_step(self, handle) -> None:
         """Collect a :meth:`launch_step` handle: the single read back,
         then the scheduler absorbs the results."""
         if handle is not None:
-            pending, C, budget, drafts = handle
-            self.scheduler.absorb(self.runner.collect(pending), C, budget,
-                                  drafts=drafts)
+            pending, C, budget, drafts, (span, before) = handle
+            try:
+                self.scheduler.absorb(self.runner.collect(pending), C,
+                                      budget, drafts=drafts)
+                span.set(tokens=self.stats.tokens_committed - before)
+            finally:
+                self.tracer.end(span)
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         """Drive admit/step/maintain until the queue drains (or max_steps);

@@ -150,7 +150,8 @@ class ModelRunner:
 
     def __init__(self, cfg, model, *, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0,
-                 pages_per_compute_block: int = 1, mesh=None, stats=None):
+                 pages_per_compute_block: int = 1, mesh=None, stats=None,
+                 tracer):
         self.cfg = cfg
         self.model = model
         self.greedy = greedy
@@ -172,6 +173,9 @@ class ModelRunner:
         #: captured — an instantiation can wait for that stream
         self.hold_captures = False
         self.stats = stats
+        #: the engine's tracer, for the ``runner.launch`` and
+        #: ``runner.read`` spans (``repro_torch/spans.py``)
+        self.tracer = tracer
         #: captured steps by key (chunk size, speculative, validate, width)
         self.step_graphs: dict[tuple, StepGraph] = {}
         self._pool = None  # the graphs' static pool
@@ -236,10 +240,16 @@ class ModelRunner:
         """Enqueue ONE fused step (a graph replay where :attr:`graphs`) and
         install the updated device state back into the manager.  Returns
         the pending packed outputs for :meth:`collect`; nothing is read
-        back here.
+        back here.  Its ``runner.launch`` span counts the positions the
+        step computes: every row of the batch times the chunk.
 
         ``drafts`` (slot → draft token list) selects the speculative step:
         the plan rides a host→device upload (never a download)."""
+        with self.tracer.span("runner.launch") as span:
+            span.set(positions=kvm.max_batch * chunk_size)
+            return self._launch(kvm, chunk_size, budget, drafts, do_validate)
+
+    def _launch(self, kvm, chunk_size, budget, drafts, do_validate):
         st = kvm.step_state()
         key = (chunk_size, drafts is not None, bool(do_validate),
                st.prompt_buf.shape[1])
@@ -283,19 +293,22 @@ class ModelRunner:
         stream.  A ``.cpu()`` to pageable memory would wait inside the
         CUDA driver, where it holds up the CUDA calls of every other thread
         (the other replicas of a fleet on one card) until this stream's
-        work ends; a stream's wait holds up nothing but its caller."""
-        if pending.device.type != "cuda":
-            host = pending.cpu().numpy()
-        else:
-            if self._host_out is None or self._host_out.shape != pending.shape:
-                self._host_out = torch.empty(pending.shape,
-                                             dtype=pending.dtype,
-                                             pin_memory=True)
-            self._host_out.copy_(pending, non_blocking=True)
-            torch.cuda.current_stream(pending.device).synchronize()
-            host = self._host_out.numpy().copy()
+        work ends; a stream's wait holds up nothing but its caller.  Its
+        ``runner.read`` span is the host's wait on the device."""
+        with self.tracer.span("runner.read"):
+            host = self._read(pending)
         return StepResult(host[0], host[1].astype(bool), host[2],
                           host[3].astype(bool), host[4], host[5])
+
+    def _read(self, pending) -> np.ndarray:
+        if pending.device.type != "cuda":
+            return pending.cpu().numpy()
+        if self._host_out is None or self._host_out.shape != pending.shape:
+            self._host_out = torch.empty(pending.shape, dtype=pending.dtype,
+                                         pin_memory=True)
+        self._host_out.copy_(pending, non_blocking=True)
+        torch.cuda.current_stream(pending.device).synchronize()
+        return self._host_out.numpy().copy()
 
     def execute(self, kvm: KVCacheManager, *, chunk_size: int = 1,
                 budget: int = 1, drafts: dict | None = None,
