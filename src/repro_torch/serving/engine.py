@@ -43,6 +43,7 @@ from repro_torch.sharding.rules import (kv_join, kv_split, moe_shard_mode,
                                         param_shards)
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
+from .prefix_index import OrderedPrefixIndex
 from .runner import ModelRunner
 from .scheduler import PrefixIndex, Request, Scheduler  # noqa: F401
 from repro_torch.spans import new_tracer
@@ -63,10 +64,10 @@ class ServingStats(EngineStats):
         self.eager_steps_held += 1
 
 
-class TracedPrefixIndex(PrefixIndex):
-    """The prefix index with a ``prefix.evict`` span around every sweep
-    (``repro_torch/spans.py``): ``PrefixIndex`` is a drift-checked copy of
-    the reference's, so the span wraps it from outside."""
+class TracedPrefixIndex(OrderedPrefixIndex):
+    """The prefix index that keeps its eviction order
+    (``prefix_index.py``), with a ``prefix.evict`` span around every sweep
+    (``repro_torch/spans.py``)."""
 
     def __init__(self, page_size: int, cap: int, kvm, stats, tracer):
         super().__init__(page_size, cap, kvm, stats)
@@ -75,10 +76,9 @@ class TracedPrefixIndex(PrefixIndex):
     def evict(self, need_pages: int | None = None,
               freeable_only: bool = True) -> int:
         with self.tracer.span("prefix.evict") as s:
-            scanned = len(self.index) + len(self.tail)
             before = self.stats.prefix_evictions
             freed = super().evict(need_pages, freeable_only)
-            s.set(keys_scanned=scanned,
+            s.set(keys_scanned=self.examined,
                   entries_evicted=self.stats.prefix_evictions - before)
         return freed
 

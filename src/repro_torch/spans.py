@@ -31,8 +31,8 @@ The spans, where they are opened, and the counters they carry:
   ``scheduler.plan_validate``, ``scheduler.absorb``,
   ``scheduler.maintain`` (the engine's scheduler);
 - ``prefix.evict`` (every sweep of the prefix index): ``keys_scanned``
-  (index and tail entries the sweep counts and sorts),
-  ``entries_evicted``;
+  (the candidates the sweep examined: popped from the index's queue of
+  leaves, stale and pinned ones included), ``entries_evicted``;
 - ``runner.launch`` (``ModelRunner.launch``): ``positions``, the rows
   times the chunk the launched step computes;
 - ``runner.read`` (``ModelRunner.collect``): the step's one read, the

@@ -17,7 +17,8 @@ from repro_torch.core import pagepool
 from repro_torch.models.transformer import init_decoder_lm
 from repro_torch.serving import (DataParallelEngine, PagedServingEngine,
                                  kv_manager, stats)
-from repro_torch.serving.scheduler import PrefixIndex
+from repro_torch.serving import prefix_index
+from repro_torch.serving.prefix_index import OrderedPrefixIndex
 
 torch.set_num_threads(1)
 
@@ -258,14 +259,23 @@ def test_no_queued_span_for_a_readmission(model):
 
 
 def test_an_evict_span_per_sweep_with_its_counters(model, monkeypatch):
+    """``keys_scanned``: the candidates a sweep pops from the index's
+    queue of leaves, at least one for each entry it evicts."""
     cfg, params = model
-    sweeps = []
-    evict = PrefixIndex.evict
+    sweeps, popped = [], [0]
+    evict, heappop = OrderedPrefixIndex.evict, prefix_index.heappop
 
     def counted(self, *a, **k):
-        sweeps.append(len(self.index) + len(self.tail))
-        return evict(self, *a, **k)
-    monkeypatch.setattr(PrefixIndex, "evict", counted)
+        n = popped[0]
+        out = evict(self, *a, **k)
+        sweeps.append(popped[0] - n)
+        return out
+
+    def pop(heap):
+        popped[0] += 1
+        return heappop(heap)
+    monkeypatch.setattr(OrderedPrefixIndex, "evict", counted)
+    monkeypatch.setattr(prefix_index, "heappop", pop)
     eng = PagedServingEngine(cfg, params, device="cpu", prefix_cache=True,
                              prefix_cache_pages=5, **KW)
     before = eng.stats.prefix_evictions
@@ -273,6 +283,7 @@ def test_an_evict_span_per_sweep_with_its_counters(model, monkeypatch):
     ev = _by_name(eng)["prefix.evict"]
     assert len(ev) == len(sweeps) > 0
     assert [e.get("keys_scanned") for e in ev] == sweeps
+    assert all(e.get("keys_scanned") >= e.get("entries_evicted") for e in ev)
     assert (sum(e.get("entries_evicted") for e in ev)
             == eng.stats.prefix_evictions - before > 0)
 
