@@ -3,33 +3,33 @@
 After the window has closed and the program's state is freed, a sample of
 the requests the program finished, drawn from the seed with the longest
 among them, is run through the plain reference once each: prompt and
-served tokens, teacher-forced.  At every served position the reference's
-float32 logits give the gap by which the served token lies below the
-reference's best token there (0 where the program picked the reference's
-argmax).  Two numbers come of it: the widest gap over the sample
-(``widest_gap``) and the mean gap over its served positions
-(``mean_gap``).  A cell's file names the numbers it compares, each with
-its limit (``check.limits``); the run is correct when every one is at
-most its limit.
+served tokens, teacher-forced.  The reference and its weights, drawn
+again from the seed, are the cell's family's (the family contract of
+``bench/cells.py``: ``forward_logits`` and ``weights``).  At every served
+position the reference's float32 logits give the gap by which the served
+token lies below the reference's best token there (0 where the program
+picked the reference's argmax).  Two numbers come of it: the widest gap
+over the sample (``widest_gap``) and the mean gap over its served
+positions (``mean_gap``).  A cell's file names the numbers it compares,
+each with its limit (``check.limits``); the run is correct when every one
+is at most its limit.
 
 The control (:func:`control_sample`, used by ``bench/tools/calibrate.py``
-and the tests, never by a benchmark run) puts the reference computed in
-fp8 in the program's place: at the same positions of the same prompts and
-served tokens, the gap read is that of the token the fp8 forward puts
-first.  The harness then judges that sample by the same :func:`compare` and
-the same limits, and the control has to come out not correct.
+and the tests, never by a benchmark run) puts the family's reference
+computed in fp8 (``precision="fp8"``) in the program's place: at the same
+positions of the same prompts and served tokens, the gap read is that of
+the token the fp8 forward puts first.  The harness then judges that
+sample by the same :func:`compare` and the same limits, and the control
+has to come out not correct.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
-
-from bench.reference.model import forward_logits
-from bench.spec import ModelSpec
-from bench.weights import make_weights
 
 
 @dataclasses.dataclass
@@ -91,18 +91,18 @@ def repeating(tokens) -> float:
     return hits / max(len(t), 1)
 
 
-def compare(spec: ModelSpec, seed: int, device,
+def compare(family: types.ModuleType, spec, seed: int, device,
             requests: list[Served]) -> Reading:
-    """Run the reference over each sampled request (module docstring).
-    The weights are drawn again from ``seed``: the reference takes nothing
-    the program made."""
-    params = make_weights(spec, seed, device)
+    """Run ``family``'s reference over each sampled request (module
+    docstring).  The weights are drawn again from ``seed``: the reference
+    takes nothing the program made."""
+    params = family.weights(spec, seed, device)
     widest = total = 0.0
     n = off = 0
     per = []
     for r in requests:
         seq = list(r.prompt) + list(r.tokens)[:-1]
-        ref = forward_logits(spec, params, seq)
+        ref = family.forward_logits(spec, params, seq)
         judged = r.tokens if r.judged is None else r.judged
         gaps = served_gaps(ref, len(r.prompt), judged)
         widest = max(widest, float(gaps.max()))
@@ -115,16 +115,16 @@ def compare(spec: ModelSpec, seed: int, device,
     return Reading(widest, total / max(n, 1), n, off, per)
 
 
-def control_sample(spec: ModelSpec, seed: int, device,
+def control_sample(family: types.ModuleType, spec, seed: int, device,
                    requests: list[Served]) -> list[Served]:
     """The control in the program's place (module docstring): at each
     served position, teacher-forced on the served tokens, the fp8
     reference's first choice is the token judged."""
-    params = make_weights(spec, seed, device)
+    params = family.weights(spec, seed, device)
     out = []
     for r in requests:
         seq = list(r.prompt) + list(r.tokens)[:-1]
-        low = forward_logits(spec, params, seq, precision="fp8")
+        low = family.forward_logits(spec, params, seq, precision="fp8")
         picks = low[len(r.prompt) - 1:].argmax(dim=1)
         out.append(Served(r.prompt, r.tokens, picks.tolist()))
         del low

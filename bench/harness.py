@@ -1,5 +1,10 @@
 """One run of one cell: set-up, the window, the traced slice, the check.
 
+Everything that depends on the architecture comes from the cell's family
+module (``Cell.family``, the family contract of ``bench/cells.py``): the
+weights, the program's config, the reference that judges the run, the
+FLOP and attention arithmetic of its readers, the launches a step.
+
 Set-up makes the weights on the device from the seed, builds the engine
 with the cell's settings, widens its prompt buffer to the longest prompt
 the mix can send and captures every step graph the cell's traffic uses
@@ -24,24 +29,7 @@ from bench.cells import Cell, load_reader
 from bench.check import Served, compare, control_sample, sample
 from bench.drive import Loop
 from bench.generate import Traffic
-from bench.spec import ModelSpec
 from bench.timeline import Run
-from bench.weights import make_weights
-
-
-def arch_config(spec: ModelSpec):
-    """The program's config object for ``spec``."""
-    from repro_torch.configs.base import ArchConfig
-
-    return ArchConfig(
-        name=spec.name, family=spec.family, n_layers=spec.n_layers,
-        d_model=spec.d_model, n_heads=spec.n_heads,
-        n_kv_heads=spec.n_kv_heads, d_ff=spec.d_ff, vocab=spec.vocab,
-        vocab_padded=spec.vocab, head_dim=spec.head_dim,
-        rope_theta=spec.rope_theta, norm_type=spec.norm, mlp_type="swiglu",
-        moe=spec.family == "moe", n_experts=spec.n_experts,
-        top_k=spec.top_k, tie_embeddings=spec.tied, remat="none",
-        fsdp=False)
 
 
 def longest_prompt(mix: dict) -> int:
@@ -55,9 +43,9 @@ def build_engine(cell: Cell, seed: int, device):
     """The engine of ``cell`` over weights drawn from ``seed``."""
     from repro_torch.serving import PagedServingEngine
 
-    params = make_weights(cell.spec, seed, device)
-    eng = PagedServingEngine(arch_config(cell.spec), params, device=device,
-                             greedy=True, **cell.engine)
+    params = cell.family.weights(cell.spec, seed, device)
+    eng = PagedServingEngine(cell.family.program_config(cell.spec), params,
+                             device=device, greedy=True, **cell.engine)
     eng.kv_manager.ensure_prompt_cap(longest_prompt(cell.mix))
     return eng
 
@@ -123,7 +111,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     def after(d):
         if trace and dev.type == "cuda":
             from bench.trace import profile_slice
-            sliced["slice"] = profile_slice(d, cell.profile_steps)
+            sliced["slice"] = profile_slice(
+                d, cell.profile_steps,
+                cell.family.attention_launches(cell.spec))
 
     loop.run(seconds, after=after)
     log(f"window {loop.w1 - loop.w0:.3f} s, {len(loop.steps)} steps, "
@@ -139,8 +129,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             f"{torch.cuda.max_memory_reserved(dev)} reserved, of "
             f"{torch.cuda.get_device_properties(dev).total_memory} bytes")
     run = Run(w0=loop.w0, w1=loop.w1, recs=loop.recs,
-              steps=loop.steps, spec=cell.spec, stats_w0=loop.stats_w0,
-              stats_w1=loop.stats_w1, setup_s=loop.w0 - t_start,
+              steps=loop.steps, family=cell.family, spec=cell.spec,
+              stats_w0=loop.stats_w0, stats_w1=loop.stats_w1,
+              setup_s=loop.w0 - t_start,
               sched_s=tally["sched_s"] if tally else None,
               profile=sliced.get("slice"))
     if run.profile is not None:
@@ -154,13 +145,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    reading = compare(cell.spec, seed, dev, picked)
+    reading = compare(cell.family, cell.spec, seed, dev, picked)
     limits = {k: float(v) for k, v in cell.check["limits"].items()}
     program = None
     if control:
         program = judge(reading, limits)
-        reading = compare(cell.spec, seed, dev,
-                          control_sample(cell.spec, seed, dev, picked))
+        reading = compare(cell.family, cell.spec, seed, dev,
+                          control_sample(cell.family, cell.spec, seed, dev,
+                                         picked))
     log(f"{'control' if control else 'check'}: {len(picked)} requests, "
         f"{reading.positions} served tokens, "
         f"{reading.off_argmax} off the reference's argmax, widest gap "

@@ -1,2 +1,3 @@
-"""The benchmark's plain reference: float32 PyTorch, no kernel, nothing of
-the program (``model.py``)."""
+"""The benchmark's plain references: float32 PyTorch, no kernel, nothing of
+the program; one file a family module points to (``model.py``: ``dense``
+and ``moe``)."""

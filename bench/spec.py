@@ -1,4 +1,5 @@
-"""A model configuration file (``bench/configs/<name>.json``) read into the
+"""The sizes of the families ``dense`` and ``moe`` (``bench/decoder.py``):
+a model configuration file (``bench/configs/<name>.json``) read into the
 sizes the weights, the reference and the FLOP arithmetic use.
 
 The file holds the published ``config.json`` keys at its top level;
@@ -13,8 +14,6 @@ program, so the plain reference can use it.
 from __future__ import annotations
 
 import dataclasses
-import json
-import pathlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +54,8 @@ class ModelSpec:
         return self.n_layers * (attn + ffn)
 
 
-def load_spec(path: pathlib.Path) -> ModelSpec:
-    """The :class:`ModelSpec` a configuration file describes."""
-    raw = json.loads(pathlib.Path(path).read_text())
+def model_spec(raw: dict) -> ModelSpec:
+    """The :class:`ModelSpec` a configuration file's object describes."""
     heads = raw["num_attention_heads"]
     d = raw["hidden_size"]
     assumed = raw.get("assumed", {})

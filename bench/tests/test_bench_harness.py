@@ -13,13 +13,13 @@ import time
 import pytest
 import torch
 
-from bench.cells import load_cell, load_reader
+from bench.cells import load_cell, load_family, load_reader
 from bench.drive import Rec, StepRec
 from bench.generate import Traffic
 from bench.harness import run_cell
 from bench.roofline import (PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S,
                             attention_work, bound_s)
-from bench.spec import ModelSpec, load_spec
+from bench.spec import ModelSpec
 from bench.tests.tiny import make_root
 from bench.timeline import Run, percentile
 from bench.trace import Slice
@@ -31,6 +31,7 @@ REPO = BENCH.parent
 SPEC = ModelSpec(name="m", family="dense", norm="nonparam_ln", n_layers=2,
                  d_model=8, n_heads=2, n_kv_heads=2, head_dim=4, d_ff=16,
                  vocab=32, rope_theta=1e4, tied=True)
+DENSE = load_family(REPO, "dense")
 
 
 # -- discovery ---------------------------------------------------------------
@@ -47,7 +48,8 @@ def test_every_cell_of_the_benchmark_is_found_with_its_files():
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(load_reader(REPO, m["name"]))
     for c in bench["configs"]:
-        assert load_spec(REPO / c["file"]).name == c["name"]
+        raw = json.loads((REPO / c["file"]).read_text())
+        assert load_family(REPO, raw["family"]).spec(raw).name == c["name"]
 
 
 def test_a_new_cell_and_metric_are_found_by_adding_files(tmp_path):
@@ -140,8 +142,8 @@ def test_closed_loop_callers_start_out_of_step():
 def _run(recs, steps=(), **kw):
     stats = {"steps": 0, "tokens_committed": 0, "prefix_tokens_reused": 0}
     return Run(w0=10.0, w1=20.0, recs=list(recs), steps=list(steps),
-               spec=SPEC, stats_w0=stats, stats_w1=kw.pop("stats_w1", stats),
-               **kw)
+               family=DENSE, spec=SPEC, stats_w0=stats,
+               stats_w1=kw.pop("stats_w1", stats), **kw)
 
 
 def _steady(t_due, first, n, gap=0.1):

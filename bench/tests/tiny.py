@@ -1,5 +1,5 @@
-"""A tiny benchmark tree for the CPU tests: the real readers and mixes,
-tiny configurations and cells, under a temporary root."""
+"""A tiny benchmark tree for the CPU tests: the real readers and family
+modules, tiny configurations, mixes and cells, under a temporary root."""
 
 from __future__ import annotations
 
@@ -7,8 +7,23 @@ import json
 import pathlib
 import shutil
 
-BENCH = pathlib.Path(__file__).resolve().parent.parent
+from bench.spec import ModelSpec
 
+BENCH = pathlib.Path(__file__).resolve().parent.parent
+TOY = BENCH / "tests" / "toy"
+
+#: the shipped families' specs at a tiny width, for tests of their parts
+SPECS = {
+    "dense": ModelSpec(name="tiny-dense", family="dense", norm="nonparam_ln",
+                       n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                       head_dim=16, d_ff=128, vocab=256, rope_theta=1e4,
+                       tied=True, init_std=0.08),
+    "moe": ModelSpec(name="tiny-moe", family="moe", norm="rmsnorm",
+                     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                     head_dim=16, d_ff=32, vocab=256, rope_theta=1e4,
+                     tied=False, n_experts=8, top_k=2, norm_eps=1e-6,
+                     init_std=0.08, norm_scale_std=0.1),
+}
 DENSE = {"name": "tiny-dense", "family": "dense", "norm": "nonparam_ln",
          "hidden_size": 128, "intermediate_size": 256,
          "num_hidden_layers": 2, "num_attention_heads": 4,
@@ -49,15 +64,22 @@ CHECKS = {"tiny-dense.open": {"limits": {"widest_gap": 0.05},
           "tiny-moe.closed": {"limits": {"mean_gap": 0.003},
                               "sample_tokens": 160}}
 
+#: the toy family's cell ``tiny-relu2.closed`` (``toy/workloads/``) checks
+#: the widest gap, limit 0.05: on the CPU over seeds 1-12, 2**31 + 3,
+#: 2**31 + 5, 2**31 + 11 and 2**31 + 19 its bf16 program read at most
+#: 0.0265 and its fp8 control at least 0.0968.
+
 
 def make_root(tmp: pathlib.Path) -> pathlib.Path:
     """Write the tree: cells ``tiny-dense.open`` (shared prefixes, cache
-    on) and ``tiny-moe.closed``, every real metric reader."""
+    on) and ``tiny-moe.closed``, every real metric reader and family
+    module."""
     root = pathlib.Path(tmp)
     b = root / "bench"
     for d in ("configs", "traffic", "workloads"):
         (b / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "metrics", b / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "families"):
+        shutil.copytree(BENCH / d, b / d, dirs_exist_ok=True)
     for cfg in (DENSE, MOE):
         (b / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     for name, mix in (("open", OPEN), ("closed", CLOSED)):
@@ -84,3 +106,27 @@ def make_root(tmp: pathlib.Path) -> pathlib.Path:
     }
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
+
+
+def add_toy_family(root: pathlib.Path) -> list[pathlib.Path]:
+    """Add the toy family ``relu2`` to the tree at ``root`` as new files
+    only: its family module, its reference, its configuration and its
+    cell ``tiny-relu2.closed`` (copies of ``bench/tests/toy/``), and their
+    entries in ``BENCHMARK.json``.  Returns the files added."""
+    root = pathlib.Path(root)
+    added = []
+    for src in sorted(TOY.rglob("*.json")) + sorted(TOY.rglob("*.py")):
+        dst = root / "bench" / src.relative_to(TOY)
+        if dst.exists():
+            raise FileExistsError(dst)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(src, dst)
+        added.append(dst)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny-relu2",
+                             "file": "bench/configs/tiny-relu2.json"})
+    bench["workloads"].append({"name": "tiny-relu2.closed",
+                               "config": "tiny-relu2", "traffic": "closed",
+                               "chips": 1})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return added

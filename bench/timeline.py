@@ -1,18 +1,18 @@
 """What a run measured, and the arithmetic the metric readers share.
 
 A :class:`Run` holds the window ``(w0, w1]`` (host seconds), every
-request's :class:`bench.drive.Rec`, the steps, the engine's counters at
-both ends of the window and, in a traced run, the scheduler's host time
-and the profiled slice.  Percentiles interpolate linearly between the two
-nearest ranks (numpy's default rule).
+request's :class:`bench.drive.Rec`, the steps, the cell's family module
+and spec (``bench/cells.py``), the engine's counters at both ends of the
+window and, in a traced run, the scheduler's host time and the profiled
+slice.  Percentiles interpolate linearly between the two nearest ranks
+(numpy's default rule).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-
-from bench.spec import ModelSpec
+import types
 
 
 def percentile(values, q: float) -> float | None:
@@ -39,7 +39,8 @@ class Run:
     w1: float
     recs: list
     steps: list
-    spec: ModelSpec
+    family: types.ModuleType
+    spec: object
     stats_w0: dict
     stats_w1: dict
     setup_s: float = 0.0
@@ -101,12 +102,12 @@ class Run:
                    if r.admitted_step is not None
                    and lo <= r.admitted_step < hi)
 
-    def computed_positions(self):
-        """(positions, sum of (position + 1)) of the prompt and generated
-        tokens whose forward ran inside the window, per request from its
-        committed tokens at the window's ends (a request first admitted
-        inside it starts from the prefix it reused)."""
-        n = ctx = 0
+    def spans(self) -> list[tuple[int, int]]:
+        """(c0, c1) per request whose forward ran inside the window over
+        its positions c0 .. c1 - 1: its committed tokens at the window's
+        ends (a request first admitted inside it starts from the prefix it
+        reused)."""
+        out = []
         for r in self.recs:
             if r.t_done is not None and r.t_done <= self.w0:
                 continue
@@ -119,16 +120,11 @@ class Run:
                   else r.committed_done)
             if c1 is None or c1 <= c0:
                 continue
-            n += c1 - c0
-            ctx += (c1 * (c1 + 1) - c0 * (c0 + 1)) // 2
-        return n, ctx
+            out.append((c0, c1))
+        return out
 
     def model_flops(self) -> float:
-        """Model FLOPs of the window's useful work: 2 × active parameters
-        a computed position, attention's 4·L·Hq·D·(position + 1), and the
-        unembedding's 2·d·vocab a generated token."""
-        s = self.spec
-        n, ctx = self.computed_positions()
-        return (2.0 * s.active_params() * n
-                + 4.0 * s.n_layers * s.n_heads * s.head_dim * ctx
-                + 2.0 * s.d_model * s.vocab * self.generated())
+        """Model FLOPs of the window's useful work, by the family's
+        arithmetic over :meth:`spans` and :meth:`generated`."""
+        return self.family.model_flops(self.spec, self.spans(),
+                                       self.generated())

@@ -45,8 +45,8 @@ def main():
         capture_graphs(eng)
         d = Loop(eng, Traffic(cell.mix, args.seed, cell.spec.vocab))
         d.run(args.seconds)
-        run = Run(d.w0, d.w1, d.recs, d.steps, cell.spec, d.stats_w0,
-                  d.stats_w1)
+        run = Run(d.w0, d.w1, d.recs, d.steps, cell.family, cell.spec,
+                  d.stats_w0, d.stats_w1)
         win = run.window_steps()
         done = sum(1 for r in run.recs
                    if r.t_done is not None and d.w0 < r.t_done <= d.w1)

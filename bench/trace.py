@@ -10,9 +10,10 @@
   steps after the window (the same traffic, continued).  The first step
   of the slice is dropped; the device's busy time is the union of the
   device operations' intervals inside the slice.  Where the trace holds
-  fewer fused-attention launches than layers × steps (a trace has been
-  seen to miss launches on this card), the slice is taken again, three
-  times at most, and the last one is kept with its count.
+  fewer fused-attention launches than the family's launches a step
+  (``attention_launches``) × steps (a trace has been seen to miss
+  launches on this card), the slice is taken again, three times at most,
+  and the last one is kept with its count.
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ class Slice:
                 for k, v in (("device_ops", by_op), ("idle_gaps", gaps))}
 
 
-def _take(loop, steps: int) -> Slice:
+def _take(loop, steps: int, per_step: int) -> Slice:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -156,15 +157,16 @@ def _take(loop, steps: int) -> Slice:
            if b > t0 and a < t1]
     ranges += [(STEP_RANGE, a, b) for a, b in step_ranges]
     launches = sum(1 for n, _, _ in ops if ATTN_KERNEL in n)
-    return Slice(t0, t1, ops, ranges, kept, launches,
-                 loop.eng.cfg.n_layers * len(kept))
+    return Slice(t0, t1, ops, ranges, kept, launches, per_step * len(kept))
 
 
-def profile_slice(loop, steps: int, attempts: int = 3) -> Slice:
-    """Profile ``steps`` steady steps (plus one dropped); module
+def profile_slice(loop, steps: int, per_step: int,
+                  attempts: int = 3) -> Slice:
+    """Profile ``steps`` steady steps (plus one dropped), which launch
+    ``paged_attention_kernel`` ``per_step`` times each; module
     docstring."""
     for _ in range(attempts):
-        sl = _take(loop, steps)
+        sl = _take(loop, steps, per_step)
         if sl.launches == sl.expected:
             break
     return sl
