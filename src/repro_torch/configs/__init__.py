@@ -1,6 +1,9 @@
 """Architecture registry: ``get_config(arch_id)``, shapes, reduced configs.
 
 Arch ids use dashes (CLI-facing); module names use underscores.
+``ARCH_IDS`` are the JAX package's, one for one; ``PORT_ARCH_IDS`` the
+architectures only the port serves, each with its own CPU-test preset
+(its module's ``TINY``, which :func:`reduced` returns).
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ import importlib
 
 from .base import (
     ArchConfig,
+    PortArchConfig,
     ShapeSpec,
     SHAPES,
     cell_supported,
@@ -30,16 +34,27 @@ ARCH_IDS = [
     "mamba2-780m",
 ]
 
+#: architectures the port serves that the JAX package has not
+PORT_ARCH_IDS = ["trinity-mini"]
+
+
+def _module(arch_id: str):
+    return importlib.import_module(f".{arch_id.replace('-', '_')}",
+                                   __package__)
+
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    mod = importlib.import_module(f".{arch_id.replace('-', '_')}", __package__)
-    return mod.CONFIG
+    if arch_id not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
+    return _module(arch_id).CONFIG
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
-    """Tiny same-family config for CPU smoke tests (one fwd/train step)."""
+    """Tiny same-family config for CPU smoke tests (one fwd/train step);
+    a port-only architecture's own preset."""
+    if cfg.name in PORT_ARCH_IDS:
+        return _module(cfg.name).TINY
     over = dict(
         n_layers=3 if cfg.family == "hybrid" else 2,
         d_model=64,
@@ -78,6 +93,8 @@ __all__ = [
     "ShapeSpec",
     "SHAPES",
     "ARCH_IDS",
+    "PORT_ARCH_IDS",
+    "PortArchConfig",
     "get_config",
     "reduced",
     "cell_supported",

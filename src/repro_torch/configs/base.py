@@ -5,7 +5,12 @@ shapes are ``SHAPES``.  ``input_specs`` builds fake-tensor stand-ins for
 every model input of a given (arch, shape) cell — shapes and dtypes, zero
 allocation (torch's ``FakeTensorMode``, the counterpart of jax's
 ``ShapeDtypeStruct``) — which is what the dry run counts.  The rest is a
-copy of ``repro.configs.base``.
+copy of ``repro.configs.base``, with one addition: :class:`PortArchConfig`,
+the block options of the architectures only the port serves (per-layer
+attention kinds, QK-norm, an attention gate, four norms a layer, leading
+dense layers, a shared expert, a sigmoid router).  ``ArchConfig`` reads
+each of them at its default, today's block, as a class attribute and not a
+field, so its fields stay the JAX package's, one for one.
 """
 
 from __future__ import annotations
@@ -65,6 +70,22 @@ class ArchConfig:
     # sharding hints (see repro.sharding.rules)
     fsdp: bool = True
 
+    # the block options of :class:`PortArchConfig`, at their defaults (class
+    # attributes, not fields: see the module docstring)
+    layer_types = None
+    attn_window = 0
+    rope_layers = "all"
+    qk_norm = False
+    attn_gate = False
+    sandwich_norm = False
+    norm_eps = 1e-6
+    dense_layers = 0
+    dense_ff = 0
+    shared_ff = 0
+    router_score = "softmax"
+    router_bias = False
+    route_scale = 1.0
+
     def __post_init__(self):
         if not self.head_dim and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -81,6 +102,68 @@ class ArchConfig:
     @property
     def has_decode(self) -> bool:
         return True  # all assigned archs have a decoder
+
+    def window_at(self, layer: int) -> int:
+        """Layer ``layer``'s attention window, 0 for full causal
+        attention: ``attn_window`` where ``layer_types`` calls the layer
+        ``sliding_attention``."""
+        if self.layer_types is None:
+            return 0
+        return (self.attn_window
+                if self.layer_types[layer] == "sliding_attention" else 0)
+
+    def rope_at(self, layer: int) -> bool:
+        """Does layer ``layer`` rotate q and k (``rope_layers``: ``all``, or
+        ``sliding`` for the window layers alone)?"""
+        if not self.use_rope:
+            return False
+        return self.rope_layers == "all" or self.window_at(layer) > 0
+
+    def moe_at(self, layer: int) -> bool:
+        """Is layer ``layer``'s feed-forward the expert layer (the first
+        ``dense_layers`` layers of an MoE config are a dense MLP of
+        ``dense_ff``)?"""
+        return self.moe and layer >= self.dense_layers
+
+
+@dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An :class:`ArchConfig` with the port's block options as fields (the
+    defaults are ``ArchConfig``'s own block):
+
+    - ``layer_types``: per layer ``"sliding_attention"`` or
+      ``"full_attention"`` (None: every layer full); ``attn_window``: the
+      window W of the sliding layers (query i sees key j when i − j < W);
+      ``rope_layers``: ``"all"``, or ``"sliding"`` where full layers use no
+      position encoding;
+    - ``qk_norm``: RMSNorm over each head's D dims of q and k (weights
+      ``q_norm``, ``k_norm`` [D]); ``attn_gate``: the attention output
+      times ``sigmoid(h·Wg)`` before ``wo``; ``sandwich_norm``: four norms
+      a layer (``ln1`` before attention, ``post_attn`` on its output,
+      ``ln2`` before the MLP, ``post_mlp`` on its output); ``norm_eps``:
+      the RMSNorm eps;
+    - ``dense_layers``/``dense_ff``: the first layers of an MoE config are
+      a SwiGLU of this width; ``shared_ff``: one shared expert of this
+      width beside the routed ones (0: none);
+    - ``router_score``: ``"softmax"`` or ``"sigmoid"``; ``router_bias``: a
+      per-expert selection bias added to the scores for the top-k choice
+      only; ``route_scale``: the gates' factor after their
+      renormalisation to a sum of 1.
+    """
+
+    layer_types: tuple | None = ArchConfig.layer_types
+    attn_window: int = ArchConfig.attn_window
+    rope_layers: str = ArchConfig.rope_layers
+    qk_norm: bool = ArchConfig.qk_norm
+    attn_gate: bool = ArchConfig.attn_gate
+    sandwich_norm: bool = ArchConfig.sandwich_norm
+    norm_eps: float = ArchConfig.norm_eps
+    dense_layers: int = ArchConfig.dense_layers
+    dense_ff: int = ArchConfig.dense_ff
+    shared_ff: int = ArchConfig.shared_ff
+    router_score: str = ArchConfig.router_score
+    router_bias: bool = ArchConfig.router_bias
+    route_scale: float = ArchConfig.route_scale
 
 
 @dataclass(frozen=True)

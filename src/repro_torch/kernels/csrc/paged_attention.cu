@@ -141,6 +141,21 @@
 //     barrier between the writes and the reads.  Append instantiations
 //     exist where the engine needs them: q and arena of one dtype, and
 //     float32 q over a bf16 arena (float32 weights, the default arena).
+//  7. A sliding window (argument window = W > 0; 0 = none; the sliding
+//     layers of trinity-mini, W = 2048).  Query slot c of a row sits at
+//     position i = len - cl + c and sees key j when j < lim (its causal
+//     horizon) and j >= lim - W.  The earliest key any query of the chunk
+//     sees is lo = len - cl + 1 - W, so the splits of point 1 partition
+//     the pages [p_lo, n) with p_lo = max(lo, 0) / page instead of [0, n):
+//     a page wholly before lo is never fetched, its page id never looked
+//     up, and the split count follows the pages left (at most
+//     ceil((C - 1 + W) / page) + 1 of them), so a window layer's launch
+//     over a 16k-token row reads about what one over a 2k-token row reads.
+//     Keys of the first page below a query's window start are masked to
+//     -inf like keys past its horizon.  Every appended token t >= len - cl
+//     >= lo lies in the partition, so point 6's writers are unchanged.
+//     With W = 0, p_lo = 0 and the lower mask is j >= 0: every expression
+//     is the one without a window, so such launches are bitwise the same.
 //
 // Launch: 128 threads; dynamic shared memory laid out by Layout below (the
 // host sizes it with the same struct).  Head dims 16, 32, 64, 128, 256.
@@ -300,6 +315,7 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
                        int* __restrict__ tickets,        // grid z > 1: zeroed
                        int C, int Hq, int Hkv, int page, int M, int P,
                        int max_splits, int split_pages, int KT, int rows,
+                       int window,                       // 0: none (point 7)
                        const T* __restrict__ k_new,      // kAppend: [B, C, Hkv, D]
                        const T* __restrict__ v_new,      // kAppend: [B, C, Hkv, D]
                        const uint8_t* __restrict__ write_ok) {  // kAppend: [B]
@@ -319,14 +335,21 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   const int S_grid = gridDim.z;
 
   // the row's split count (point 1): from its page count, D and the page
-  // size alone, through split_pages and max_splits
+  // size alone, through split_pages and max_splits; with a window, from
+  // the pages from the chunk's first window start on (point 7)
   const int len = lengths[b];
   const int cl = chunk_lens[b];  // (read beside len: one round trip)
   int n_pages = len > 0 ? (len + page - 1) / page : 0;
   if (n_pages > M) n_pages = M;
-  const int S = n_pages == 0
+  int p_lo = 0;
+  if (window > 0) {
+    const int lo = len - cl + 1 - window;
+    p_lo = lo > 0 ? min(lo / page, n_pages) : 0;
+  }
+  const int n_vis = n_pages - p_lo;
+  const int S = n_vis == 0
                     ? 1
-                    : min(max_splits, (n_pages + split_pages - 1) / split_pages);
+                    : min(max_splits, (n_vis + split_pages - 1) / split_pages);
   if (s >= S) return;  // (block-uniform)
 
   const int q0 = qg * rows;
@@ -349,8 +372,8 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   float* l_s = reinterpret_cast<float*>(smem + L.l);       // [rows]
   __shared__ int is_last;
 
-  const int t0 = (s * n_pages) / S * page;
-  const int t1 = min((s + 1) * n_pages / S * page, len);
+  const int t0 = (p_lo + (s * n_vis) / S) * page;
+  const int t1 = min((p_lo + (s + 1) * n_vis / S) * page, len);
   const int n_stages = t1 > t0 ? (t1 - t0 + KT - 1) / KT : 0;
   const long long page_stride = (long long)page * Hkv * D;
   const float scale = 1.0f / sqrtf((float)D);
@@ -565,6 +588,9 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
       }
       const int ra = qt * kTile + r0;
       const int lim0 = lim_s[ra], lim1 = lim_s[ra + 8];
+      // the window's first key of each row (point 7); 0 without one
+      const int lo0 = window > 0 ? lim0 - window : 0;
+      const int lo1 = window > 0 ? lim1 - window : 0;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
@@ -572,10 +598,12 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
         for (int e = 0; e < 2; ++e) {
           const int key = nt * 8 + (lane & 3) * 2 + e;
           const bool ok = tt < t1 && pid_st[ksl * kTile + key] >= 0;
-          sc[j][nt][e] =
-              ok && tt + key < lim0 ? sc[j][nt][e] * scale : -INFINITY;
-          sc[j][nt][2 + e] =
-              ok && tt + key < lim1 ? sc[j][nt][2 + e] * scale : -INFINITY;
+          sc[j][nt][e] = ok && tt + key < lim0 && tt + key >= lo0
+                             ? sc[j][nt][e] * scale
+                             : -INFINITY;
+          sc[j][nt][2 + e] = ok && tt + key < lim1 && tt + key >= lo1
+                                 ? sc[j][nt][2 + e] * scale
+                                 : -INFINITY;
           mx[0] = fmaxf(mx[0], sc[j][nt][e]);
           mx[1] = fmaxf(mx[1], sc[j][nt][2 + e]);
         }
@@ -838,7 +866,7 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
            const void* lengths, const void* chunk_lens, void* out, void* part,
            void* tickets, const void* k_new, const void* v_new,
            const void* write_ok, int B, int C, int Hq, int Hkv, int page,
-           int M, int P, int max_splits, int split_pages,
+           int M, int P, int max_splits, int split_pages, int window,
            cudaStream_t stream) {
   constexpr bool kMma = sizeof(TQ) == 2 && sizeof(T) == 2;
   const int q_size = kMma ? 2 : 4;
@@ -887,7 +915,7 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
       static_cast<const int*>(lengths), static_cast<const int*>(chunk_lens),
       static_cast<TQ*>(out), static_cast<float*>(part),
       static_cast<int*>(tickets), C, Hq, Hkv, page, M, P, max_splits,
-      split_pages, KT, rows, static_cast<const T*>(k_new),
+      split_pages, KT, rows, window, static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<const uint8_t*>(write_ok));
   return (int)cudaGetLastError();
 }
@@ -898,13 +926,13 @@ int launch_d(int D, const void* q, const void* k, const void* v,
              void* out, void* part, void* tickets, const void* k_new,
              const void* v_new, const void* write_ok, int B, int C, int Hq,
              int Hkv, int page, int M, int P, int max_splits, int split_pages,
-             cudaStream_t s) {
+             int window, cudaStream_t s) {
 #define PA_D(DD)                                                              \
   if (D == DD)                                                                \
   return launch<TQ, T, DD, kAppend>(q, k, v, bt, lengths, chunk_lens, out,    \
                                     part, tickets, k_new, v_new, write_ok, B, \
                                     C, Hq, Hkv, page, M, P, max_splits,       \
-                                    split_pages, s)
+                                    split_pages, window, s)
   PA_D(16);
   PA_D(32);
   PA_D(64);
@@ -926,8 +954,9 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 // k_new, v_new ([B, C, Hkv, D], the arena's dtype) and write_ok ([B] bool):
 // the fused append (point 6), all three or none; null selects the kernel
 // without it.  Built for q_dtype == kv_dtype and for a float32 q over a
-// bf16 arena.  Returns cudaGetLastError() after the launch (0 = launched),
-// or a CUDA error code for a refused configuration.
+// bf16 arena.  window: the sliding window W of point 7, 0 for none.
+// Returns cudaGetLastError() after the launch (0 = launched), or a CUDA
+// error code for a refused configuration.
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* bt,
                                       const void* lengths,
@@ -937,9 +966,10 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* write_ok, int B, int C,
                                       int Hq, int Hkv, int D, int page, int M,
                                       int P, int max_splits, int split_pages,
-                                      int q_dtype, int kv_dtype,
+                                      int q_dtype, int kv_dtype, int window,
                                       void* stream) {
   if (B * Hkv == 0 || C == 0 || Hq == 0) return 0;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (max_splits < 1 || max_splits > kMaxSplits || split_pages < 1)
     return (int)cudaErrorInvalidValue;
   const bool append = k_new != nullptr;
@@ -949,7 +979,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
 #define PA_LAUNCH(TQ, TKV, A)                                                 \
   return launch_d<TQ, TKV, A>(D, q, k, v, bt, lengths, chunk_lens, out, part, \
                               tickets, k_new, v_new, write_ok, B, C, Hq, Hkv, \
-                              page, M, P, max_splits, split_pages, s)
+                              page, M, P, max_splits, split_pages, window, s)
   using bf16 = __nv_bfloat16;
   if (q_dtype == 0 && kv_dtype == 0) {
     if (append) PA_LAUNCH(float, float, true);

@@ -27,7 +27,7 @@ def _one(x):
 
 def paged_attention(q, kv, block_tables, lengths, *,
                     pages_per_compute_block: int = 1, chunk_lens=None,
-                    mesh=None, append=None):
+                    mesh=None, append=None, window: int = 0):
     """Decode or chunked-prefill attention over the paged pool.
 
     q [B, Hq, D] (decode) or [B, C, Hq, D] (chunk); kv {'k','v': [P, page,
@@ -58,6 +58,10 @@ def paged_attention(q, kv, block_tables, lengths, *,
     launch per shard (``paged_attention_append_cuda``); on CPU tensors
     ``kv_append_plain`` and then the attention above, the serving step's
     sequence before the fusion.
+
+    ``window`` W > 0 (one device; a sliding-window layer): each query sees
+    only the W key positions up to its own, and the kernel reads no page
+    wholly before the chunk's first window; 0 = none.
     """
     qs, kvs = (q, kv) if mesh is not None else ([q], [kv])
     squeeze = qs[0].dim() == 3
@@ -65,9 +69,12 @@ def paged_attention(q, kv, block_tables, lengths, *,
     if append is not None and squeeze:
         raise ValueError("paged_attention: append needs the chunk form, "
                          "q [B, C, Hq, D]")
+    if window and mesh is not None and mesh.tp > 1:
+        raise ValueError("paged_attention: a sliding window is served on "
+                         "one device")
     if squeeze and not cuda and (mesh is None or mesh.tp == 1):
         out = paged_attention_ref(qs[0], kvs[0]["k"], kvs[0]["v"],
-                                  _one(block_tables), _one(lengths))
+                                  _one(block_tables), _one(lengths), window)
         return out if mesh is None else [out]
     q4 = [x[:, None].contiguous() if squeeze else x.contiguous() for x in qs]
     if squeeze or chunk_lens is None:
@@ -83,13 +90,15 @@ def paged_attention(q, kv, block_tables, lengths, *,
         bt, ln, cl = _one(block_tables), _one(lengths), _one(chunk_lens)
         if append is None:
             args = (q4[0], ks[0], vs[0], bt, ln, cl)
-            outs = [paged_attention_cuda(*args, pages_per_compute_block)
-                    if cuda else paged_attention_plain(*args)]
+            outs = [paged_attention_cuda(*args, pages_per_compute_block,
+                                         window=window)
+                    if cuda else paged_attention_plain(*args, window)]
         else:
             kn, vn, ok = (_one(x) for x in append)
             args = (q4[0], ks[0], vs[0], kn, vn, bt, ln, cl, ok)
-            outs = [paged_attention_append_cuda(*args, pages_per_compute_block)
-                    if cuda else paged_attention_append_plain(*args)]
+            outs = [paged_attention_append_cuda(*args, pages_per_compute_block,
+                                                window=window)
+                    if cuda else paged_attention_append_plain(*args, window)]
     else:
         fn = paged_attention_sharded if cuda else paged_attention_sharded_plain
         outs = fn(q4, ks, vs, block_tables, lengths, chunk_lens, mesh=mesh,

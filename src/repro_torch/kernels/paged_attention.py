@@ -10,7 +10,10 @@ columns, so that a query row's arithmetic never depends on the head
 layout).
 Semantics are the Pallas kernel's: C queries per row over the row's pages
 with the in-chunk causal mask, −1 pages masked, float32 online softmax,
-zeros for rows of length 0.
+zeros for rows of length 0; and, where a launch gives a sliding window W
+(``window``, 0 = none), each query sees only the W key positions up to its
+own, and pages wholly before the chunk's first window are not read (point
+7 of the kernel's header note).
 
 :func:`paged_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`paged_attention_plain` is the same
@@ -91,15 +94,16 @@ def stage_tokens(head_dim: int, kv_dtype) -> int:
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
-                          chunk_lens):
+                          chunk_lens, window: int = 0):
     """The kernel's function in plain PyTorch (the kernel ignores
     ``pages_per_compute_block``, so this version has none)."""
     return paged_attention_chunked_ref(q, k_pages, v_pages, block_tables,
-                                       lengths, chunk_lens)
+                                       lengths, chunk_lens, window)
 
 
 def paged_attention_append_plain(q, k_pages, v_pages, k_new, v_new,
-                                 block_tables, lengths, chunk_lens, write_ok):
+                                 block_tables, lengths, chunk_lens, write_ok,
+                                 window: int = 0):
     """The fused launch's function in plain PyTorch: ``kv_append_plain``
     of each row's first ``chunk_lens`` new tokens at positions ``lengths -
     chunk_lens`` onward (the arena, in place), then
@@ -107,16 +111,21 @@ def paged_attention_append_plain(q, k_pages, v_pages, k_new, v_new,
     kv_append_plain(k_pages, v_pages, k_new, v_new, block_tables,
                     lengths - chunk_lens, chunk_lens, write_ok)
     return paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
-                                 chunk_lens)
+                                 chunk_lens, window)
+
+
+def typed_launch(fn):
+    """``fn``, the C entry ``paged_attention_launch`` of a build of
+    ``paged_attention.cu``, typed: 12 pointers, 13 ints, the stream."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    return fn
 
 
 @locked_cache
 def _launcher():
     """The kernel's C entry point, typed once per process."""
-    fn = load("paged_attention").paged_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    return fn
+    return typed_launch(load("paged_attention").paged_attention_launch)
 
 
 _tickets: dict = {}
@@ -190,7 +199,8 @@ def _check(cond: bool, msg: str, name: str = "paged_attention_cuda") -> None:
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                          chunk_lens, pages_per_compute_block: int = 1, *,
-                         _splits: int | None = None, _append=None):
+                         window: int = 0, _splits: int | None = None,
+                         _append=None):
     """q [B, C, Hq, D] and k/v pages [P, page, Hkv, D] (one layer's arena),
     each float32 or bfloat16, D one of :data:`HEAD_DIMS`; block_tables
     [B, M], lengths [B] and chunk_lens [B] int32, all contiguous CUDA
@@ -198,7 +208,10 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     the inputs' device's current stream and never reads a device value on
     the host.  ``pages_per_compute_block`` is accepted for the reference's
     signature and ignored: the kernel's stage size does not depend on it.
-    ``_splits`` forces :func:`row_splits`' split count for the split sweep
+    ``window`` > 0: each query sees only the ``window`` key positions up to
+    its own, and the launch reads no page wholly before the first of them
+    that the chunk's first query sees (``lengths - chunk_lens + 1 -
+    window``); 0 is the launch without one, bit for bit.  ``_splits`` forces :func:`row_splits`' split count for the split sweep
     and its tests only; the serving path never passes it.  ``_append`` is the
     fused append's (k_new, v_new, write_ok), checked by
     :func:`paged_attention_append_cuda`, its only caller."""
@@ -225,6 +238,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
            "lengths and chunk_lens must be [B]")
     _check(_splits is None or 1 <= _splits <= MAX_SPLITS,
            f"splits must be in 1..{MAX_SPLITS}")
+    _check(int(window) >= 0, "window must be 0 (none) or positive")
     M = block_tables.shape[1]
     # the kernel's rule as (most splits, pages per split); forced: (S, 1)
     rule = ((MAX_SPLITS, split_pages(D, page)) if _splits is None
@@ -251,7 +265,7 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(), *append, B, C,
             Hq, Hkv, D, page, M, P, *rule, _DTYPES[q.dtype],
-            _DTYPES[k_pages.dtype], stream)
+            _DTYPES[k_pages.dtype], int(window), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -267,6 +281,7 @@ paged_attention_cuda.launches = 0
 def paged_attention_append_cuda(q, k_pages, v_pages, k_new, v_new,
                                 block_tables, lengths, chunk_lens, write_ok,
                                 pages_per_compute_block: int = 1, *,
+                                window: int = 0,
                                 _splits: int | None = None):
     """One launch that appends and attends: writes k_new/v_new [B, C, Hkv,
     D] (contiguous, the arena's dtype) into k/v pages in place — token j of
@@ -304,7 +319,7 @@ def paged_attention_append_cuda(q, k_pages, v_pages, k_new, v_new,
     check(tuple(write_ok.shape) == (B,), "write_ok must be [B]")
     out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                                chunk_lens, pages_per_compute_block,
-                               _splits=_splits, _append=new)
+                               window=window, _splits=_splits, _append=new)
     count_launch(paged_attention_append_cuda)
     return out
 

@@ -9,6 +9,9 @@ row whose chunk holds ``chunk_lens`` live tokens sees key positions
 ``< min(lengths - chunk_lens + j + 1, lengths)``), −1 pages masked, and the
 guarded softmax that gives zeros for fully masked queries.  Both keep the
 reference's forms exactly; they compute in float32 and return q's dtype.
+Both take a sliding ``window`` W (0 = none, the reference's forms): a
+query sees only the W key positions up to its own (those ``>= limit −
+W``, ``limit`` its horizon above).
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ def _gather(pages_arr, block_tables):
     return pages_arr[idx].reshape(B, M * page, Hkv, D)
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                        window: int = 0):
     """q [B, Hq, D]; k_pages/v_pages [P, page, Hkv, D]; block_tables
-    [B, max_pages] int (−1 = unmapped, read as page 0); lengths [B].
-    Returns [B, Hq, D] (q.dtype)."""
+    [B, max_pages] int (−1 = unmapped, read as page 0); lengths [B];
+    ``window`` (module docstring).  Returns [B, Hq, D] (q.dtype)."""
     B, Hq, D = q.shape
     Hkv = k_pages.shape[2]
     G = Hq // Hkv
@@ -40,19 +44,22 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k) * (1.0 / math.sqrt(D))
     pos = torch.arange(k.shape[1], device=q.device)
-    s = torch.where((pos[None, :] < lengths[:, None])[:, None, None, :], s,
-                    -torch.inf)
+    seen = pos[None, :] < lengths[:, None]
+    if window:
+        seen = seen & (pos[None, :] >= lengths[:, None] - window)
+    s = torch.where(seen[:, None, None, :], s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v)
     return o.reshape(B, Hq, D).to(q.dtype)
 
 
 def paged_attention_chunked_ref(q, k_pages, v_pages, block_tables, lengths,
-                                chunk_lens):
+                                chunk_lens, window: int = 0):
     """q [B, C, Hq, D]; k_pages/v_pages [P, page, Hkv, D]; block_tables
     [B, max_pages] (−1 = unmapped, masked); lengths [B] — the TOTAL valid
     KV length per row including the chunk; chunk_lens [B] (1..C) live query
-    slots.  Returns [B, C, Hq, D] (q.dtype); fully masked queries give 0."""
+    slots; ``window`` (module docstring).  Returns [B, C, Hq, D]
+    (q.dtype); fully masked queries give 0."""
     B, C, Hq, D = q.shape
     page, Hkv = k_pages.shape[1], k_pages.shape[2]
     G = Hq // Hkv
@@ -68,6 +75,8 @@ def paged_attention_chunked_ref(q, k_pages, v_pages, block_tables, lengths,
     limit = torch.minimum(qpos + 1, ln)  # in-chunk causal horizon
     mapped = (block_tables >= 0)[:, pos // page]  # [B, S]
     mask = (pos[None, None, :] < limit[:, :, None]) & mapped[:, None, :]
+    if window:
+        mask = mask & (pos[None, None, :] >= limit[:, :, None] - window)
     mask = mask[:, :, None, None, :]
     s = torch.where(mask, s, -torch.inf)
     m = torch.amax(s, dim=-1)

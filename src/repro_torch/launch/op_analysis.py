@@ -11,7 +11,10 @@ runs:
 - ``dot_flops``: ``torch.utils.flop_counter``'s formulas (those of its
   ``FlopCounterMode``) summed —
   2·M·N·K for every matrix product (``mm``, ``addmm``, ``bmm``,
-  ``baddbmm``, convolutions, fused attention), forward and backward;
+  ``baddbmm``, convolutions, fused attention), forward and backward; and
+  for the token-major expert layer's grouped product (``_grouped_mm``,
+  which that counter does not know) 2·M·N·K over every row of its
+  [M, K] operand, the segments' total where every assignment is computed;
   elementwise work and reductions are not counted, as the reference counts
   only ``dot`` and ``convolution`` ops;
 - ``hbm_bytes``: every aten op's tensor operands and outputs, in bytes,
@@ -195,6 +198,9 @@ class _Counter(TorchDispatchMode):
         packet = getattr(func, "_overloadpacket", None)
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        elif packet is torch.ops.aten._grouped_mm:
+            (m, k), n = args[0].shape, args[1].shape[-1]
+            self.flops += 2 * m * k * n
         n = _op_bytes(func, args, kwargs, out)
         self.bytes += n
         self.ops += n > 0

@@ -55,7 +55,7 @@ def apply_norm(cfg, x, norm_params):
     sequence is gathered (``rules.gather_seq``) for the products that
     read it."""
     if cfg.norm_type == "rmsnorm":
-        y = rmsnorm(x, norm_params["scale"])
+        y = rmsnorm(x, norm_params["scale"], cfg.norm_eps)
     elif cfg.norm_type == "layernorm":
         y = layernorm(x, norm_params["scale"], norm_params["bias"])
     elif cfg.norm_type == "nonparam_ln":
@@ -153,7 +153,9 @@ def init_mlp(cfg, gen, d, ff, dtype=torch.bfloat16, bias=False, device=None):
 
 
 def init_attention(cfg, gen, dtype=torch.bfloat16, device=None):
-    """Attention projections with the reference's shapes and scales."""
+    """Attention projections with the reference's shapes and scales; the
+    port's options add the output gate ``wg`` [d, Hq·D] and the QK-norm
+    scales ``q_norm``/``k_norm`` [D] (``configs/base.py::PortArchConfig``)."""
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     std_in, std_out = 0.02, 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
     p = {
@@ -166,11 +168,18 @@ def init_attention(cfg, gen, dtype=torch.bfloat16, device=None):
         p["bq"] = torch.zeros((Hq * Dh,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((Hkv * Dh,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((Hkv * Dh,), dtype=dtype, device=device)
+    if cfg.attn_gate:
+        p["wg"] = _normal(gen, (d, Hq * Dh), std_in, dtype, device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((Dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((Dh,), dtype=dtype, device=device)
     return p
 
 
-def attention_qkv(cfg, x, p, positions):
-    """Project to q/k/v with RoPE applied.  x [B,S,d] -> q [B,S,Hq,D], k/v."""
+def attention_qkv(cfg, x, p, positions, rope: bool | None = None):
+    """Project to q/k/v, RMS-normalise each head of q and k where ``p``
+    holds ``q_norm``/``k_norm`` (QK-norm), then apply RoPE unless ``rope``
+    is False (None: ``cfg.use_rope``).  x [B,S,d] -> q [B,S,Hq,D], k/v."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -183,11 +192,24 @@ def attention_qkv(cfg, x, p, positions):
     q = rules.split_heads(q, Hq).reshape(B, S, Hq, Dh)
     k = rules.split_heads(k, Hkv).reshape(B, S, Hkv, Dh)
     v = rules.split_heads(v, Hkv).reshape(B, S, Hkv, Dh)
-    if cfg.use_rope:
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope if rope is None else rope:
         sin, cos = rope_angles(positions, Dh, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     return q, k, v
+
+
+def attention_out(cfg, h, att, p):
+    """The attention block's output from the merged heads ``att`` [..,
+    Hq·D] of the normed input ``h``: times ``sigmoid(h·wg)`` where ``p``
+    has the output gate, then ``wo``."""
+    if "wg" in p:
+        g = torch.sigmoid((h @ p["wg"]).float())
+        att = (att.float() * g).to(att.dtype)
+    return att @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

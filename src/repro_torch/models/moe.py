@@ -1,4 +1,5 @@
-"""Token-choice top-k Mixture of Experts with capacity-bounded dispatch.
+"""Token-choice top-k Mixture of Experts: capacity-bounded dispatch for
+training, a token-major grouped dispatch for serving.
 
 The port of ``repro.models.moe``, forward and backward.  The
 same function: a float32 router, top-k gates renormalised to sum to 1,
@@ -9,18 +10,40 @@ back and summed under their gates.  The sequence is processed in groups
 of ``MOE_SEQ_CHUNK`` tokens when it is longer than one group and a
 multiple of it (the reference's ``lax.scan``; here a Python loop).
 
-Capacity (:func:`moe_capacity`) is ``ceil(group·k·cf / E)`` when training
-and ``group·k`` with ``dropless=True``, which every serving path passes:
-no assignment is ever dropped, so one-token decode, chunked prefill and
-speculative verification compute the same per-token function.
+The router's options (``configs/base.py::PortArchConfig``; the defaults
+are the reference's): softmax or sigmoid scores, a per-expert selection
+bias (``router_bias`` [E] float32) added to the scores for the choice of
+the k experts only, the k gates (the chosen scores) renormalised or not,
+then scaled by ``route_scale``.  A shared expert (``ws_gate``/``ws_up``
+[d, shared_ff], ``ws_down`` [shared_ff, d]) adds its swiglu of every
+token to the routed output, once.
 
-Layout.  The reference scatters into a ``[B, E, C, d]`` buffer and runs
-three einsums batched over experts; here the buffer is ``[E, B·C, d]``
-with one trash row after it, so each expert's product is one ``bmm``
-slice and a dropped assignment is written to the trash row instead of
-relying on an out-of-range scatter being dropped (on CUDA an out-of-range
-index is a device-side assert).  The gather back clamps the dropped slot
-to C − 1 and multiplies by 0, as the reference's clamped gather does.
+Two layouts, one function:
+
+- Capacity-bounded (``dropless=False``, the training loss; and every
+  call on DTensors): capacity (:func:`moe_capacity`) is ``ceil(group·k·cf
+  / E)``.  The reference scatters into a ``[B, E, C, d]`` buffer and runs
+  three einsums batched over experts; here the buffer is ``[E, B·C, d]``
+  with one trash row after it, so each expert's product is one ``bmm``
+  slice and a dropped assignment is written to the trash row instead of
+  relying on an out-of-range scatter being dropped (on CUDA an
+  out-of-range index is a device-side assert).  The gather back clamps
+  the dropped slot to C − 1 and multiplies by 0, as the reference's
+  clamped gather does.  With ``dropless=True`` on a card in float32 (the
+  reduced parity runs) the same layout runs at capacity ``group·k``,
+  where no assignment is dropped.
+- Token-major (``dropless=True``, which every serving path passes, on the
+  CPU or on bf16 CUDA tensors; :func:`_moe_group_token_major`): the
+  group's B·S·k assignments are sorted by expert into one static buffer,
+  each expert's segment ends at an offset kept on the device, and each of
+  the three products is one grouped product of fixed shape over the
+  segments (``torch._grouped_mm``: CUTLASS's grouped GEMM on sm_90);
+  the outputs go back to assignment order and are summed under the
+  gates.  No assignment is dropped and none is padded: the padded layout
+  at capacity ``S·k`` gives every expert ``S·k`` rows a batch row, E-fold
+  the work.  Assignments a caller marks dead (``live``: the chunk's
+  padding positions) and those to experts outside the call's share sort
+  past the last segment and are not computed.
 
 The backward is autograd's.  The reference writes the combine's
 transpose by hand (``_combine_core``) only to keep GSPMD from
@@ -32,11 +55,13 @@ assignment's row of the buffer's cotangent and gives a dropped one 0
 (the trash row is outside the expert buffer).
 
 Everything here is a plain tensor op on the caller's device with no host
-read: no ``.item()``, no boolean-mask indexing, no ``nonzero``.  Ties in
-the top-k are broken by the lower expert index, as ``jax.lax.top_k``
-breaks them (a stable descending sort).  The expert products are plain
-batched matrix products (``torch.bmm``), as the reference leaves its
-einsums to XLA: this is not one of the repo's Pallas kernels.
+read: no ``.item()``, no boolean-mask indexing, no ``nonzero``; the
+token-major layout's shapes depend on B, S and k alone, so a captured
+graph replays it.  Ties in the top-k are broken by the lower expert index,
+as ``jax.lax.top_k`` breaks them (a stable descending sort).  The expert
+products are library products (``torch.bmm``, ``torch._grouped_mm``), as
+the reference leaves its einsums to XLA: this is not one of the repo's
+Pallas kernels.
 
 Parameters (per layer): ``w_router`` [d, E] float32 whatever the model's
 dtype; ``w_gate``/``w_up`` [E, d, ff] and ``w_down`` [E, ff, d] in the
@@ -45,10 +70,12 @@ holds the whole router and either an expert-hidden slice of every expert
 (``REPRO_MOE_SHARD=tp``) or its own whole experts ``[e0, e0 + E/T)``
 (``ep``: ``expert0=e0``, ``w_gate`` [E/T, d, ff]); :func:`moe_apply` over
 it gives that shard's partial output, and the partials sum to the whole
-layer's output.  Expert-parallel: every shard routes over all E experts,
+layer's output (a shared expert is added by the ``expert0 = 0`` call
+alone).  Expert-parallel: every shard routes over all E experts,
 dispatches only the assignments to its own experts (the rest go to the
-trash row) and runs the products of its experts only; capacity and each
-assignment's slot are counted over all E, as in the whole layer.
+trash row, or past the last segment) and runs the products of its
+experts only; capacity and each assignment's slot are counted over all
+E, as in the whole layer.
 """
 
 from __future__ import annotations
@@ -66,7 +93,10 @@ MOE_SEQ_CHUNK = 512
 
 
 def moe_capacity(cfg, group_len: int, dropless: bool = False) -> int:
-    """Slots per expert and batch row for a group of ``group_len`` tokens."""
+    """Slots per expert and batch row for a group of ``group_len`` tokens in
+    the capacity-bounded layout (module docstring): the training loss's,
+    and with ``dropless`` the worst case, which the token-major serving
+    layout does not pad to."""
     if dropless:  # worst case: every assignment routed to one expert
         return group_len * cfg.top_k
     return max(1, int(math.ceil(
@@ -75,25 +105,53 @@ def moe_capacity(cfg, group_len: int, dropless: bool = False) -> int:
 
 def init_moe(cfg, gen, dtype=torch.bfloat16, device=None):
     """Seeded expert weights with the reference's shapes and scales; the
-    router stays float32."""
+    router stays float32.  The port's router options add a selection
+    bias (float32, std 0.02) and a shared expert (module docstring)."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     std_in, std_out = 0.02, 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
-    return {
+    p = {
         "w_router": _normal(gen, (d, E), std_in, torch.float32, device),
         "w_gate": _normal(gen, (E, d, ff), std_in, dtype, device),
         "w_up": _normal(gen, (E, d, ff), std_in, dtype, device),
         "w_down": _normal(gen, (E, ff, d), std_out, dtype, device),
     }
+    if cfg.router_bias:
+        p["router_bias"] = _normal(gen, (E,), std_in, torch.float32, device)
+    if cfg.shared_ff:
+        sff = cfg.shared_ff
+        p["ws_gate"] = _normal(gen, (d, sff), std_in, dtype, device)
+        p["ws_up"] = _normal(gen, (d, sff), std_in, dtype, device)
+        p["ws_down"] = _normal(gen, (sff, d), std_out, dtype, device)
+    return p
 
 
-def _route(cfg, x, w_router):
-    """Router over x [B, S, d] in float32 -> (probs [B, S, E], gate and
-    expert [B, S, k]), ties to the lower expert index."""
+def _route(cfg, x, w_router, bias=None):
+    """Router over x [B, S, d] in float32 -> (scores [B, S, E], gate and
+    expert [B, S, k]), ties to the lower expert index: softmax or sigmoid
+    scores; the k experts chosen by score plus ``bias`` where given; their
+    scores as gates, renormalised (with a 1e-20 guard for sigmoid scores,
+    which need not sum to anything) and scaled as the config says."""
     logits = x.float() @ w_router.float()
-    probs = torch.softmax(logits, dim=-1)
-    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = gate[..., :cfg.top_k], expert[..., :cfg.top_k]
-    return probs, gate / gate.sum(-1, keepdim=True), expert
+    sigmoid = cfg.router_score == "sigmoid"
+    probs = torch.sigmoid(logits) if sigmoid else torch.softmax(logits, -1)
+    if bias is None:
+        gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, expert = gate[..., :cfg.top_k], expert[..., :cfg.top_k]
+    else:
+        expert = torch.sort(probs + bias.float(), dim=-1, descending=True,
+                            stable=True).indices[..., :cfg.top_k]
+        gate = torch.gather(probs, -1, expert)
+    total = gate.sum(-1, keepdim=True)
+    gate = gate / (total + 1e-20 if sigmoid else total)
+    if cfg.route_scale != 1.0:
+        gate = gate * cfg.route_scale
+    return probs, gate, expert
+
+
+def _shared(x, p):
+    """The shared expert's swiglu of every token."""
+    h = F.silu(x @ p["ws_gate"]) * (x @ p["ws_up"])
+    return h @ p["ws_down"]
 
 
 def _slots(cfg, expert, C: int, El: int, expert0: int):
@@ -166,23 +224,81 @@ def _combine(out, local_e, pos_in_e, keep, gate, C: int):
     return gath.reshape(B, S, k, d).sum(dim=2)
 
 
-def _moe_group(cfg, x, p, dropless: bool = False, expert0: int = 0):
+def token_major(x, dropless: bool) -> bool:
+    """Does a call over ``x`` take the token-major layout (module
+    docstring): dropless, on the CPU or in bf16 on a card.  On a card the
+    grouped product is CUTLASS's for bf16 alone; in float32 it copies its
+    offsets to the host, which a captured graph refuses."""
+    return dropless and (not x.is_cuda or x.dtype == torch.bfloat16)
+
+
+def _moe_group(cfg, x, p, dropless: bool = False, expert0: int = 0,
+               live=None):
     """One token group.  x [B, S, d] -> (y [B, S, d], aux float32 []); the
-    products of experts ``[expert0, expert0 + p["w_gate"].shape[0])``.
-    Under a mesh: :func:`_moe_group_sharded`."""
+    products of experts ``[expert0, expert0 + p["w_gate"].shape[0])``, in
+    the token-major layout where :func:`token_major` says so (``live``
+    [B, S] bool: the tokens computed, the others give 0), else the
+    capacity-bounded one.  Under a mesh: :func:`_moe_group_sharded`."""
     if rules.sharded_on_mesh(x):
         return _moe_group_sharded(cfg, x, p, dropless)
+    if token_major(x, dropless):
+        return _moe_group_token_major(cfg, x, p, expert0, live)
     B, S, d = x.shape
     k = cfg.top_k
     El = p["w_gate"].shape[0]
     C = moe_capacity(cfg, S, dropless=dropless)
-    probs, gate, expert = _route(cfg, x, p["w_router"])
+    probs, gate, expert = _route(cfg, x, p["w_router"], p.get("router_bias"))
     flat_e, onehot, pos_in_e, local_e, keep = _slots(cfg, expert, C, El,
                                                      expert0)
     aux = _aux(cfg, probs, onehot.float().sum(dim=1), S)
     eb = _dispatch(x, local_e, pos_in_e, keep, El, C, k)
     out = _experts(eb, p)
-    return _combine(out, local_e, pos_in_e, keep, gate, C), aux
+    y = _combine(out, local_e, pos_in_e, keep, gate, C)
+    if "ws_gate" in p and expert0 == 0:
+        y = y + _shared(x, p)
+    return y, aux
+
+
+def _moe_group_token_major(cfg, x, p, expert0: int = 0, live=None):
+    """:func:`_moe_group`'s token-major layout (module docstring): x [B, S,
+    d] -> (y [B, S, d], aux float32 [])."""
+    B, S, d = x.shape
+    k = cfg.top_k
+    N, A = B * S, B * S * k
+    El = p["w_gate"].shape[0]
+    probs, gate, expert = _route(cfg, x, p["w_router"], p.get("router_bias"))
+    flat_e = expert.reshape(A)
+    # the aux loss's per-row assignment counts, as the padded layout has them
+    rows = torch.arange(B, device=x.device).repeat_interleave(S * k)
+    counts = torch.zeros(B * cfg.n_experts, device=x.device).index_add_(
+        0, rows * cfg.n_experts + flat_e,
+        torch.ones(A, device=x.device)).view(B, cfg.n_experts)
+    aux = _aux(cfg, probs, counts, S)
+    local = flat_e - expert0
+    keep = (local >= 0) & (local < El)
+    if live is not None:
+        keep = keep & live.reshape(N, 1).expand(N, k).reshape(A)
+    key = torch.where(keep, local, El)  # El: sorted last, not computed
+    order = torch.sort(key, stable=True).indices
+    per = torch.zeros(El + 1, dtype=torch.int32, device=x.device).index_add_(
+        0, key, torch.ones(A, dtype=torch.int32, device=x.device))
+    offs = torch.cumsum(per[:El], 0, dtype=torch.int32)
+    xs = x.reshape(N, d)[order // k]
+    # expert e's segment, rows offs[e-1] .. offs[e] - 1, times its matrix;
+    # the rows past offs[-1] are left undefined
+    h = (F.silu(torch._grouped_mm(xs, p["w_gate"], offs=offs))
+         * torch._grouped_mm(xs, p["w_up"], offs=offs))
+    ys = torch._grouped_mm(h, p["w_down"], offs=offs)
+    out = torch.empty_like(ys).index_copy_(0, order, ys)
+    # an uncomputed row is undefined (it may hold NaN): select, not multiply
+    out = torch.where(keep[:, None], out * gate.reshape(A, 1).to(out.dtype),
+                      0)
+    y = out.view(B, S, k, d).sum(dim=2)
+    if "ws_gate" in p and expert0 == 0:
+        y = y + _shared(x, p)
+        if live is not None:
+            y = torch.where(live[..., None], y, 0)
+    return y, aux
 
 
 def _moe_group_sharded(cfg, x, p, dropless: bool):
@@ -194,6 +310,9 @@ def _moe_group_sharded(cfg, x, p, dropless: bool):
     over the weights' own placements (each expert's hidden slice: partial
     sums over 'model'; whole experts with ``ep``); the combine on each
     rank's rows and experts, partial where the products were."""
+    if "router_bias" in p or "ws_gate" in p:
+        raise NotImplementedError("the expert layer on DTensors has no "
+                                  "selection bias and no shared expert")
     x = rules.shard_seq(x)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -234,17 +353,22 @@ def _moe_group_sharded(cfg, x, p, dropless: bool):
 
 
 def moe_apply(cfg, x, p, group: int = MOE_SEQ_CHUNK, dropless: bool = False,
-              expert0: int = 0):
+              expert0: int = 0, live=None):
     """x [B, S, d] -> (y [B, S, d], aux float32 []) over groups of ``group``
     tokens (one group when S <= group or group does not divide S; the aux
-    loss is then the groups' mean).  ``dropless=True`` sizes capacity so no
-    assignment is dropped: every inference path passes it.  ``p`` holding
-    fewer experts than ``cfg.n_experts`` (expert parallelism) gives the
-    partial output of experts ``expert0`` onward (module docstring)."""
+    loss is then the groups' mean).  ``dropless=True`` drops no
+    assignment: every inference path passes it, and it takes the
+    token-major layout where :func:`token_major` says so.  ``live`` [B, S]
+    bool (token-major only): the tokens to compute; the others give 0.
+    ``p`` holding fewer experts than ``cfg.n_experts`` (expert
+    parallelism) gives the partial output of experts ``expert0`` onward
+    (module docstring)."""
     B, S, d = x.shape
     if S <= group or S % group != 0:
-        return _moe_group(cfg, x, p, dropless=dropless, expert0=expert0)
-    ys, auxs = zip(*(_moe_group(cfg, x[:, i:i + group], p, dropless=dropless,
-                                expert0=expert0)
-                     for i in range(0, S, group)))
+        return _moe_group(cfg, x, p, dropless=dropless, expert0=expert0,
+                          live=live)
+    ys, auxs = zip(*(_moe_group(
+        cfg, x[:, i:i + group], p, dropless=dropless, expert0=expert0,
+        live=None if live is None else live[:, i:i + group])
+        for i in range(0, S, group)))
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()

@@ -56,13 +56,15 @@ from repro_torch.device import resolve_device
 from repro_torch.sharding import rules
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
-from .layers import (_normal, apply_norm, attention_qkv, decode_attention,
-                     flash_attention, init_attention, init_mlp, init_norm,
-                     mlp_apply)
+from .layers import (_normal, apply_norm, attention_out, attention_qkv,
+                     decode_attention, flash_attention, init_attention,
+                     init_mlp, init_norm, mlp_apply)
 from .moe import init_moe, moe_apply
 
-#: the decoder-LM families (the ones the paged serving path serves)
-DECODER_FAMILIES = ("dense", "moe", "vlm")
+#: the decoder-LM families (the ones the paged serving path serves);
+#: ``afmoe`` (trinity-mini) adds the block options of
+#: ``configs/base.py::PortArchConfig`` to ``moe``
+DECODER_FAMILIES = ("dense", "moe", "vlm", "afmoe")
 #: the entries of a parameter tree stacked per layer (lists in the port)
 STACKED = ("blocks", "enc_blocks", "groups", "tail")
 
@@ -121,14 +123,21 @@ def _residual(x, y):
     return x + rules.shard_seq(y)
 
 
+def post_norm(cfg, y, blk, name):
+    """A sublayer's output ``y`` through the block's norm ``name`` where it
+    has one (``sandwich_norm``: ``post_attn``, ``post_mlp``)."""
+    return apply_norm(cfg, y, blk[name]) if name in blk else y
+
+
 def _ffn(cfg, x, blk, norm, dropless=False):
     """x plus the block's MLP (or MoE, capacity-bounded unless
     ``dropless``) of ``norm``(x)."""
     h = apply_norm(cfg, x, blk[norm])
     if "moe" in blk:
-        return _residual(x, moe_apply(cfg, h, blk["moe"],
-                                      dropless=dropless)[0])
-    return _residual(x, mlp_apply(cfg, h, blk["mlp"]))
+        y = moe_apply(cfg, h, blk["moe"], dropless=dropless)[0]
+    else:
+        y = mlp_apply(cfg, h, blk["mlp"])
+    return _residual(x, post_norm(cfg, y, blk, "post_mlp"))
 
 
 #: the matrix products without batch dimensions, whose outputs ``"dots"``
@@ -377,19 +386,26 @@ def _generator(seed, device):
 # Decoder-LM family (dense / MoE / prefix-VLM)
 
 
-def init_decoder_block(cfg, gen, dtype=torch.bfloat16, device=None):
-    """One block's parameters as nested dicts: ln1, attn, ln2, and ``moe``
-    in place of ``mlp`` for an MoE config."""
+def init_decoder_block(cfg, gen, dtype=torch.bfloat16, device=None,
+                       layer: int = 0):
+    """Layer ``layer``'s parameters as nested dicts: ln1, attn, ln2, and
+    ``moe`` in place of ``mlp`` for an MoE config past its dense layers
+    (``cfg.moe_at``; a dense layer's MLP is ``dense_ff`` wide where the
+    config sets it); with ``sandwich_norm``, ``post_attn`` and
+    ``post_mlp`` too."""
     p = {
         "ln1": init_norm(cfg, cfg.d_model, dtype, device),
         "attn": init_attention(cfg, gen, dtype, device),
         "ln2": init_norm(cfg, cfg.d_model, dtype, device),
     }
-    if cfg.moe:
+    if cfg.sandwich_norm:
+        p["post_attn"] = init_norm(cfg, cfg.d_model, dtype, device)
+        p["post_mlp"] = init_norm(cfg, cfg.d_model, dtype, device)
+    if cfg.moe_at(layer):
         p["moe"] = init_moe(cfg, gen, dtype, device)
     else:
-        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype,
-                            device=device)
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                            dtype, device=device)
     return p
 
 
@@ -402,8 +418,8 @@ def init_decoder_lm(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     gen, dev = _generator(seed, device)
     params = {
         "embed": init_embed(cfg, gen, dtype, dev),
-        "blocks": [init_decoder_block(cfg, gen, dtype, dev)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [init_decoder_block(cfg, gen, dtype, dev, layer)
+                   for layer in range(cfg.n_layers)],
         "final_norm": init_norm(cfg, cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
@@ -429,23 +445,28 @@ def _decoder_embed(cfg, model, batch):
     return torch.cat([prefix, x], dim=1), prefix.shape[1]
 
 
-def _decoder_block_fwd(cfg, x, blk, positions, prefix_len, dropless=False):
-    """One block over the whole sequence -> (x, aux, k, v); MoE blocks
-    capacity-bounded unless ``dropless``."""
+def _decoder_block_fwd(cfg, x, blk, positions, prefix_len, dropless=False,
+                       layer: int = 0):
+    """Layer ``layer`` over the whole sequence -> (x, aux, k, v); MoE blocks
+    capacity-bounded unless ``dropless``.  Its attention window and RoPE
+    are the layer's (``cfg.window_at``, ``cfg.rope_at``)."""
     x = rules.shard_seq(x)  # sequence-parallel residual stream (Megatron-SP)
     h = apply_norm(cfg, x, blk["ln1"])
-    q, k, v = attention_qkv(cfg, h, blk["attn"], positions)
+    q, k, v = attention_qkv(cfg, h, blk["attn"], positions,
+                            rope=cfg.rope_at(layer))
     # prefix_len > 0: leading (image) tokens attend bidirectionally
     att = flash_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                          window=cfg.sliding_window, prefix_len=prefix_len)
-    x = _residual(x, rules.merge_heads(att) @ blk["attn"]["wo"])
+                          window=cfg.window_at(layer) or cfg.sliding_window,
+                          prefix_len=prefix_len)
+    x = _residual(x, post_norm(cfg, attention_out(
+        cfg, h, rules.merge_heads(att), blk["attn"]), blk, "post_attn"))
     h2 = apply_norm(cfg, x, blk["ln2"])
-    if cfg.moe:
+    if "moe" in blk:
         y, aux = moe_apply(cfg, h2, blk["moe"], dropless=dropless)
     else:
         y = mlp_apply(cfg, h2, blk["mlp"])
         aux = torch.zeros((), device=x.device)
-    return _residual(x, y), aux, k, v
+    return _residual(x, post_norm(cfg, y, blk, "post_mlp")), aux, k, v
 
 
 def decoder_forward(cfg, model, batch, dropless=False):
@@ -457,13 +478,13 @@ def decoder_forward(cfg, model, batch, dropless=False):
     x, prefix_len = _decoder_embed(cfg, model, batch)
     pos_all = torch.arange(x.shape[1], device=x.device)
 
-    def layer(x, blk):
+    def layer(x, blk, l):
         return _decoder_block_fwd(cfg, x, blk, pos_all, prefix_len,
-                                  dropless)[:2]
+                                  dropless, l)[:2]
 
     auxs = []
-    for blk in model.blocks:
-        x, aux = _remat(cfg, layer, x, blk)
+    for l, blk in enumerate(model.blocks):
+        x, aux = _remat(cfg, layer, x, blk, l)
         auxs.append(aux)
     return apply_norm(cfg, x, model.final_norm), torch.stack(auxs).sum()
 
@@ -479,7 +500,8 @@ def decoder_prefill(cfg, model, batch, cache_size):
     kc = vc = None
     for l, blk in enumerate(model.blocks):
         x, _, k, v = _decoder_block_fwd(cfg, x, rules.gather_data(blk),
-                                        pos_all, prefix_len, dropless=True)
+                                        pos_all, prefix_len, dropless=True,
+                                        layer=l)
         if kc is None:
             kc = k.new_zeros((cfg.n_layers, B, cache_size) + k.shape[2:])
             vc = torch.zeros_like(kc)
@@ -496,13 +518,16 @@ def decoder_decode_step(cfg, model, cache, batch):
     than it.  The cache's K/V are written in place (module docstring)."""
     W = cache["k"].shape[2]
     x, rows, slot, cache_len = _decode_setup(cfg, model, batch, W)
-    window = cfg.sliding_window if W > (cfg.sliding_window or W) else None
     for l, blk in enumerate(model.blocks):
+        w = cfg.window_at(l) or cfg.sliding_window
+        window = w if W > (w or W) else None
         h = apply_norm(cfg, x, blk["ln1"])
-        q, k, v = attention_qkv(cfg, h, blk["attn"], batch["pos"][:, None])
+        q, k, v = attention_qkv(cfg, h, blk["attn"], batch["pos"][:, None],
+                                rope=cfg.rope_at(l))
         kc, vc = _ring_step(cache, l, rows, slot, k, v)
         att = decode_attention(q, kc, vc, cache_len, window=window)
-        x = _residual(x, rules.merge_heads(att) @ blk["attn"]["wo"])
+        x = _residual(x, post_norm(cfg, attention_out(
+            cfg, h, rules.merge_heads(att), blk["attn"]), blk, "post_attn"))
         x = _ffn(cfg, x, blk, "ln2", dropless=True)
     x = apply_norm(cfg, x, model.final_norm)
     return (unembed(cfg, model, x)[:, 0].float(),

@@ -307,6 +307,24 @@ class PagedServingEngine:
             self.scheduler.requeue(req)
         return req
 
+    def _step_counters(self, res) -> dict:
+        """The row and KV counters of ``engine.step``, on the host, from
+        the step's one read ``res`` and the committed lengths (no other
+        device read): ``rows``, the rows the step advanced (granted and
+        computed; a row the pool starved does not count); over the rows
+        live after the step, ``pages_in_use``, Σ ⌈len / page⌉, and
+        ``window_dead_pages``, Σ ⌊max(0, len − W) / page⌋ for the config's
+        sliding window W (0 without window layers): the pages whose every
+        token lies outside the window of the step after this one, which a
+        window layer never reads again."""
+        ps = self.page_size
+        w = self.cfg.attn_window if self.cfg.layer_types else 0
+        lens = [r.committed for r in self.kv_manager.slots if r is not None]
+        return {"rows": int((res.adv > 0).sum()),
+                "pages_in_use": sum(-(-n // ps) for n in lens),
+                "window_dead_pages": (sum(max(0, n - w) // ps for n in lens)
+                                      if w else 0)}
+
     def step(self, *, inject_preemption_of: Request | None = None) -> None:
         """One batched decode/prefill step: the scheduler plans the chunk,
         the runner enqueues ONE fused step and makes ONE read back, the
@@ -324,7 +342,8 @@ class PagedServingEngine:
                                       do_validate=do_validate)
             self.scheduler.absorb(res, C, budget, inject_preemption_of,
                                   drafts=drafts)
-            span.set(tokens=self.stats.tokens_committed - before)
+            span.set(tokens=self.stats.tokens_committed - before,
+                     **self._step_counters(res))
 
     def launch_step(self):
         """Enqueue one step WITHOUT collecting its host transfer; returns a
@@ -352,9 +371,10 @@ class PagedServingEngine:
         if handle is not None:
             pending, C, budget, drafts, (span, before) = handle
             try:
-                self.scheduler.absorb(self.runner.collect(pending), C,
-                                      budget, drafts=drafts)
-                span.set(tokens=self.stats.tokens_committed - before)
+                res = self.runner.collect(pending)
+                self.scheduler.absorb(res, C, budget, drafts=drafts)
+                span.set(tokens=self.stats.tokens_committed - before,
+                         **self._step_counters(res))
             finally:
                 self.tracer.end(span)
 

@@ -1,12 +1,21 @@
 """Paged decode + chunked-prefill step for decoder LMs (PyTorch): dense,
-MoE and the VLM's text decoder.
+MoE, the VLM's text decoder and ``afmoe`` (trinity-mini).
 
 The port of ``repro.serving.paged_decode``: the same math, with the KV
 cache in the versioned page pool — storage [L, P, page, Hkv, D], one block
 table per sequence shared by all layers.  An MoE block runs the dropless
-expert layer (``models/moe.py``, capacity ``C = S·k``) where a dense block
-runs its MLP; the paged step, like the reference's, applies no sliding
-window and reads no VLM image patches.
+expert layer where a dense block runs its MLP: on bf16 card tensors and
+on the CPU its token-major layout (``models/moe.py``: the step's
+assignments sorted by expert, grouped products over the segments, the
+chunk's padding positions not computed).  Each layer runs by its kind
+(``configs/base.py::PortArchConfig``): a sliding-window layer's launch
+takes its window (``ArchConfig.window_at``; the reference's step, and
+every config without ``layer_types``, applies none), RoPE where
+``rope_at`` says, and the block options of ``afmoe`` — QK-norm, the
+attention output gate, the post-attention and post-MLP norms, the leading
+dense layers — where the layer's parameters hold them.  ``afmoe`` is
+served on one device: under a mesh the step refuses it.  No step reads
+VLM image patches.
 
 - ``paged_decode_step``: the bare model math — (logits, kv).
 - ``fused_decode_step``: the serving hot path.  Page growth (one batched
@@ -70,10 +79,11 @@ import torch
 from repro_torch.core import pagepool as pp
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import paged_attention, speculative_accept
-from repro_torch.models.layers import apply_norm, attention_qkv, mlp_apply
+from repro_torch.models.layers import (apply_norm, attention_out,
+                                       attention_qkv, mlp_apply)
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (DECODER_FAMILIES, embed_tokens,
-                                            unembed)
+                                            post_norm, unembed)
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.sharding.rules import (ROW_BIASES, heads_split, kv_heads,
                                         lm_head_split, mlp_split, moe_axis,
@@ -172,14 +182,15 @@ def _mlp_partial(cfg, h, p):
                               if k not in ROW_BIASES})
 
 
-def _ffn(cfg, shards, mesh, h, dev):
+def _ffn(cfg, shards, mesh, h, dev, live=None):
     """The block's feed-forward output on ``dev``: the shards' MLP or
     (MoE) dropless expert-layer partials summed (each shard's hidden slice,
     or under expert parallelism its own experts; one shard's whole output
     where the weights are not split), the row-parallel biases added once
-    after the sum."""
+    after the sum.  ``live`` [B, C]: the chunk's live positions, the only
+    ones the token-major expert layer computes."""
     devs = mesh.devices
-    if cfg.moe:
+    if "moe" in shards[0]:
         # dropless: the serving path computes the same per-token function
         # whatever the chunk width (decode-parity contract)
         ax = moe_axis(cfg, mesh.tp, mesh.moe_shard)
@@ -187,7 +198,9 @@ def _ffn(cfg, shards, mesh, h, dev):
         per = cfg.n_experts // mesh.tp if ax == 0 else 0
         return _reduce([moe_apply(cfg, h.to(devs[s], non_blocking=True),
                                   shards[s].moe, dropless=True,
-                                  expert0=s * per)[0]
+                                  expert0=s * per,
+                                  live=None if live is None else
+                                  live.to(devs[s], non_blocking=True))[0]
                         for s in range(n)], dev)
     n = mesh.tp if mlp_split(cfg, mesh.tp) else 1
     y = _reduce([_mlp_partial(cfg, h.to(devs[s], non_blocking=True),
@@ -222,6 +235,11 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     Returns (x [B, C, d_model] final-normed, kv)."""
     if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError("paged decode: decoder LMs only")
+    if cfg.family == "afmoe" and mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the afmoe family is served on one device; its "
+            f"window layers, QK-norm, output gate and shared expert have no "
+            f"tensor-parallel layout")
     B, C = tokens.shape
     dev = tokens.device
     shards, kvs, mesh = _layout(model, kv, mesh, dev)
@@ -238,6 +256,8 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
     total_len = (lengths + n_new).to(torch.int32)
     if write_ok is None:
         write_ok = torch.ones((B,), dtype=torch.bool, device=dev)
+    # the positions the token-major expert layer computes
+    live = torch.arange(C, device=dev)[None, :] < n_new[:, None]
     poss, bts, nns, oks, tots = map(
         mesh.replicate, (positions, block_tables, n_new, write_ok, total_len))
     for layer in range(cfg.n_layers):
@@ -248,7 +268,8 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
             kl, vl = kvs[s]["k"][layer], kvs[s]["v"][layer]  # [P,page,Hkv,D]
             q, k, v = attention_qkv(lcfgs[s],
                                     h.to(devs[s], non_blocking=True),
-                                    blk.attn, poss[s])
+                                    blk.attn, poss[s],
+                                    rope=cfg.rope_at(layer))
             qs.append(pad_window(q, windows[s]))
             kns.append(k.to(kl.dtype).contiguous())
             vns.append(v.to(vl.dtype).contiguous())
@@ -258,13 +279,16 @@ def _chunk_core(model, kv, block_tables, lengths, tokens, n_new, *, cfg,
         atts = paged_attention(
             qs, slabs, bts, tots, mesh=mesh, chunk_lens=nns,
             pages_per_compute_block=pages_per_compute_block,
-            append=(kns, vns, oks))
-        x = x + _reduce([window_heads(a, w, lc.n_heads).reshape(B, C, -1)
-                         @ blk.attn["wo"]
-                         for a, w, lc, blk in zip(atts, windows, lcfgs, blks)
-                         ][:n_attn], dev)
+            append=(kns, vns, oks), window=cfg.window_at(layer))
+        # (only afmoe's gate reads h: it is served on one device)
+        o = _reduce([attention_out(lc, h, window_heads(a, w, lc.n_heads)
+                                   .reshape(B, C, -1), blk.attn)
+                     for a, w, lc, blk in zip(atts, windows, lcfgs, blks)
+                     ][:n_attn], dev)
+        x = x + post_norm(cfg, o, blks[0], "post_attn")
         h2 = apply_norm(cfg, x, blks[0].ln2)
-        x = x + _ffn(cfg, blks, mesh, h2, dev)
+        x = x + post_norm(cfg, _ffn(cfg, blks, mesh, h2, dev, live),
+                          blks[0], "post_mlp")
     return apply_norm(cfg, x, shards[0].final_norm), kv
 
 

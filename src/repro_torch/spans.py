@@ -26,7 +26,11 @@ turns it off (a span is then a shared object that records nothing).
 The spans, where they are opened, and the counters they carry:
 
 - ``engine.step`` (``PagedServingEngine.step``; ``launch_step`` to
-  ``collect_step``): ``tokens``, the tokens the step committed;
+  ``collect_step``): ``tokens``, the tokens the step committed; ``rows``,
+  the rows it advanced (granted and computed), from its one read; over the
+  rows live after it, ``pages_in_use`` (Σ ⌈len / page⌉) and
+  ``window_dead_pages`` (Σ ⌊max(0, len − W) / page⌋ for the config's
+  sliding window W; 0 without one), from the host's lengths;
 - ``scheduler.admit``, ``scheduler.plan_chunk``,
   ``scheduler.plan_validate``, ``scheduler.absorb``,
   ``scheduler.maintain`` (the engine's scheduler);

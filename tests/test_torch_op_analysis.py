@@ -17,7 +17,12 @@ the reference's HLO analysis — on known loops and against the reference.
   - every train step: the port's loss recomputes each checkpointed chunk's
     logits in the backward (``models/model.py::_chunked_ce``), one
     [B, S', d] x [d, V] product more (S' the text length rounded up to
-    whole loss chunks): 2·B·S'·d·V FLOPs.
+    whole loss chunks): 2·B·S'·d·V FLOPs;
+  - the MoE configs' prefill and decode: the reference's dropless expert
+    layer multiplies every expert's C = S·k slots a row, the port's
+    token-major layer (``models/moe.py``) the B·S·k assignments alone,
+    so per expert layer 3 products of 2·d·ff FLOPs for each of the
+    (E·B·C − B·S·k) padding rows.
   What is left is within 0.2% (mamba2-780m's train counts 0.15% fewer in
   the port: its backward, not traced further).
 - The count runs alike on fake tensors (no allocation) and real ones.
@@ -144,6 +149,10 @@ def _named_gap(arch, kind):
     if kind == "prefill" and cfg.family == "audio":
         kv = cfg.n_kv_heads * cfg.head_dim
         gap += 2 * 2 * cfg.n_layers * B * cfg.encoder_seq * cfg.d_model * kv
+    if kind in ("prefill", "decode") and cfg.moe:
+        s = S if kind == "prefill" else 1
+        pad = cfg.n_experts * B * s * cfg.top_k - B * s * cfg.top_k
+        gap += cfg.n_layers * 3 * 2 * cfg.d_model * cfg.d_ff * pad
     if kind == "train":  # over the loss's padded chunks of the text
         text = S - cfg.prefix_tokens
         chunk = min(cfg.loss_chunk, text)

@@ -133,10 +133,7 @@ def main(argv: list[str]) -> int:
         print("paged_attention_trace: no CUDA device", file=sys.stderr)
         return 2
     lib = build(args.threads, args.group)
-    fn = lib.paged_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p])
+    fn = pa.typed_launch(lib.paged_attention_launch)
     pa._launcher = lambda: fn
     lib.pa_trace_read.argtypes = [ctypes.c_void_p]
     lib.pa_trace_read.restype = ctypes.c_int
