@@ -315,6 +315,7 @@ import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))  # split_cases: numpy only
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per data sheet
@@ -375,6 +376,27 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def live_err(got, want, cl, label, share=None):
+    """Kernel 1's output ``got`` against its plain version ``want``: the
+    largest difference over the live query slots, after checking that
+    every padded slot (c >= ``cl``) is exactly zero (the kernel's header
+    note, point 8; ``tests/split_cases.py::live_error``) and, with
+    ``share``, that no row's difference passes ``share`` of its live RMS
+    (``split_cases.live_share``, logged)."""
+    from split_cases import live_error, live_share
+
+    err, stray, _ = live_error(got, want, cl)
+    check(stray == 0, f"{label}: {stray} elements of padded query slots "
+          f"are not zero")
+    if share is not None:
+        worst = live_share(got, want, cl)
+        log(f"{label}: a row's live max err at most {worst:.2%} of its live "
+            f"RMS (limit {share:.0%})")
+        check(worst <= share, f"{label}: a row's max err is {worst} of its "
+              f"live RMS, above {share}")
+    return err
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -477,28 +499,34 @@ def attention_case(B, C, Hq, Hkv, D, page, P, M, dtype, seed, lens=None):
     return q, kp, vp, T(bt), T(ln), T(cl)
 
 
-def attention_work(q, kp, bt, ln, cl):
-    """(bytes, ops) this call must move and do, from this run's data: q read
-    and out written once, each live mapped K/V token read once, the block
-    table entries and lengths read; 4*D ops per live (query, key) pair."""
+def attention_work(q, kp, bt, ln, cl, window=0):
+    """(bytes, ops) this call must move and do, from this run's data: each
+    live query slot's q read and output written once, each mapped K/V
+    token of a row read once (with a window W, only from the page of the
+    chunk's first window start on), those block table entries and the
+    lengths read; 4*D ops per live (query, key) pair."""
     import numpy as np
 
     B, C, Hq, D = q.shape
     page, Hkv = kp.shape[1], kp.shape[2]
     el = kp.element_size()
     bt_h, ln_h, cl_h = (t.cpu().numpy() for t in (bt, ln, cl))
-    kv_tokens = pairs = bt_reads = 0
+    kv_tokens = pairs = bt_reads = slots = 0
     for b in range(B):
-        n = min(-(-int(ln_h[b]) // page), bt_h.shape[1])
-        bt_reads += n
-        mapped = np.repeat(bt_h[b, :n] >= 0, page)[: ln_h[b]]
-        kv_tokens += int(mapped.sum())
-        for c in range(C):
-            lim = min(int(ln_h[b]) - int(cl_h[b]) + c + 1, int(ln_h[b]))
-            pairs += int(mapped[:max(lim, 0)].sum())
-    byts = (2 * q.numel() * q.element_size() + 2 * kv_tokens * Hkv * D * el
-            + 4 * (bt_reads + 2 * B))
-    ops = 4 * D * pairs * (Hq // Hkv) * Hkv
+        L, CL = int(ln_h[b]), min(max(int(cl_h[b]), 0), C)
+        n = min(-(-L // page), bt_h.shape[1])
+        p_lo = min(max(L - CL + 1 - window, 0) // page, n) if window else 0
+        bt_reads += n - p_lo
+        mapped = np.repeat(bt_h[b, :n] >= 0, page)[:L]
+        kv_tokens += int(mapped[p_lo * page:].sum())
+        slots += CL
+        for c in range(CL):
+            lim = max(min(L - CL + c + 1, L), 0)
+            pairs += int(mapped[max(lim - window, 0) if window else 0:lim]
+                         .sum())
+    byts = (2 * slots * Hq * D * q.element_size()
+            + 2 * kv_tokens * Hkv * D * el + 4 * (bt_reads + 2 * B))
+    ops = 4 * D * pairs * Hq
     return byts, ops
 
 
@@ -575,8 +603,8 @@ def attention_row(case, label, plain_iters=5):
                                                      paged_attention_plain,
                                                      row_splits)
 
-    err = (paged_attention_cuda(*case).float()
-           - paged_attention_plain(*case).float()).abs().max().item()
+    err = live_err(paged_attention_cuda(*case), paged_attention_plain(*case),
+                   case[5], label)
     byts, ops = attention_work(case[0], case[1], *case[3:])
     b_ms, by = bound_ms(byts, ops, "bfloat16")
     yard = sdpa_yardstick(*case)
@@ -601,6 +629,68 @@ def attention_row(case, label, plain_iters=5):
     log(f"{label}: device ms with every row forced to S splits "
         + json.dumps(sweep) + f"; the rule's {row['device_ms']:.5f} (its "
         f"rows' split counts {rule}); {byts / 1e6:.1f} MB moved")
+    return row
+
+
+#: trinity-mini's mixed [64, 32] step at kernel level (kernel table row
+#: 1m): 32 query heads on 4 KV heads of 128, rows of 6-8k tokens of which
+#: 29 prefill a chunk of 32 and the rest decode one token, the block table
+#: as wide as the cell's (``max_pages_per_seq``); 8 full layers and 24 of
+#: window 2048 a step
+MIXED_STEP = dict(B=64, C=32, Hq=32, Hkv=4, D=128, prefilling=29, M=1088,
+                  layers={0: 8, 2048: 24})
+
+
+def mixed_step_row():
+    """Kernel 1 with the fused append (the serving launch) at
+    :data:`MIXED_STEP`: checked by :func:`fused_check` at W = 0 and 2048,
+    each row's live slots within ``split_cases.LIVE_RMS_SHARE`` of their
+    RMS, then
+    timed at both beside the bound of the live work (each live slot's
+    pairs, the K/V a row's launch must read, the appended tokens written),
+    and the step's kernel-1 time and bound from its layers.  Logs and
+    returns the row."""
+    import numpy as np
+    import torch
+    from split_cases import LIVE_RMS_SHARE
+
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_append_cuda)
+
+    m = MIXED_STEP
+    B, C = m["B"], m["C"]
+    lens = np.random.default_rng(21).integers(6000, 8193, B)
+    case = attention_case(B, C, m["Hq"], m["Hkv"], m["D"], 16,
+                          int((-(-lens // 16)).sum()) + 8, m["M"],
+                          torch.bfloat16, seed=21, lens=lens)
+    q, kp, vp, bt, ln, cl = case
+    prefill = np.random.default_rng(22).permutation(B) < m["prefilling"]
+    cl.copy_(torch.as_tensor(np.where(prefill, C, 1).astype(np.int32)))
+    kn, vn, ok = append_inputs(case, seed=21, deny=None)
+    row = {"prefilling": int(prefill.sum()), "decoding": int(B - prefill.sum())}
+    arena = [kp.clone(), vp.clone()]  # the timed launches append into it
+    step_ms = step_bound = 0.0
+    for W, layers in m["layers"].items():
+        err = fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok,
+                          f"mixed step W={W}", window=W,
+                          share=LIVE_RMS_SHARE)
+        byts, ops = attention_work(q, kp, bt, ln, cl, window=W)
+        byts += 2 * int(cl.sum()) * m["Hkv"] * m["D"] * kp.element_size() + B
+        b_ms, by = bound_ms(byts, ops, "bfloat16")
+
+        def launch():
+            paged_attention_append_cuda(q, *arena, kn, vn, bt, ln, cl, ok,
+                                        window=W)
+        dev = device_ms(launch, "paged_attention_kernel")
+        row[f"w{W}"] = dict(max_abs_err=err, ms=time_ms(launch),
+                            device_ms=dev, bound_ms=b_ms, bound_by=by,
+                            bound_share=b_ms / dev)
+        step_ms += layers * dev
+        step_bound += layers * b_ms
+    row.update(step_device_ms=step_ms, step_bound_ms=step_bound,
+               step_bound_share=step_bound / step_ms)
+    log("paged_attention_append mixed step [64, 32] (trinity-mini's "
+        "shapes): " + json.dumps(row))
     return row
 
 
@@ -631,8 +721,7 @@ def kernel_phase(results):
                                                dtype, seed=100 + i)
         got = paged_attention_cuda(q, kp, vp, bt, ln, cl, ppcb)
         want = paged_attention_plain(q, kp, vp, bt, ln, cl)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        err = live_err(got, want, cl, f"paged_attention case {i}")
         check(math.isfinite(err) and err <= tol[dtype],
               f"paged_attention case {i} {sweep[i]}: max err {err}")
         check(bool((got[-1] == 0).all()) or int(ln[-1]) > 0,
@@ -644,7 +733,6 @@ def kernel_phase(results):
 
     # -- kernel 1: the split design's edge cases, at every split count -------
     # (the cases of the tests, ``tests/split_cases.py``, at page 16, D 128)
-    sys.path.insert(0, str(ROOT / "tests"))
     from split_cases import split_edge_case
 
     n_cases = 0
@@ -657,8 +745,7 @@ def kernel_phase(results):
                 case = [a.to(dtype) for a in arrays[:3]] + arrays[3:]
                 got = paged_attention_cuda(*case, _splits=S)
                 want = paged_attention_plain(*case)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                err = live_err(got, want, case[5], f"split edge S={S}")
                 check(math.isfinite(err) and err <= tol[dtype],
                       f"paged_attention split edge S={S} C={C} Hq={Hq} "
                       f"Hkv={Hkv} {dtype}: max err {err}")
@@ -692,6 +779,7 @@ def kernel_phase(results):
         name="paged_attention", route="cuda", source=PA_SRC, replaces=PA_TPU,
         **rows[1])
     results["paged_attention_c16"] = rows[16]
+    results["paged_attention_mixed_step"] = mixed_step_row()
 
     sharded_kernel(results, lens)
 
@@ -787,11 +875,14 @@ def append_inputs(case, seed, deny=1):
     return kn, vn, ok
 
 
-def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None):
+def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None,
+                window=0, share=None):
     """The fused launch on copies of the arena against ``kv_append_cuda`` +
     ``paged_attention_cuda`` (bitwise, arena and output) and against the
-    plain version (arena bit-exact, output within kernel 1's tolerance).
-    Returns the max abs error against the plain version."""
+    plain version (arena bit-exact, output within kernel 1's tolerance on
+    the live query slots, and within ``share`` of their RMS when given;
+    padded slots zero), with a window W when given.  Returns the max abs
+    error against the plain version."""
     import torch
 
     from repro_torch.kernels.kv_append import kv_append_cuda
@@ -801,10 +892,12 @@ def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None):
 
     pair, mine, plain = ([kp.clone(), vp.clone()] for _ in range(3))
     kv_append_cuda(*pair, kn, vn, bt, ln - cl, cl, ok)
-    want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S)
+    want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S,
+                                window=window)
     got = paged_attention_append_cuda(q, *mine, kn, vn, bt, ln, cl, ok,
-                                      _splits=S)
-    ref = paged_attention_append_plain(q, *plain, kn, vn, bt, ln, cl, ok)
+                                      _splits=S, window=window)
+    ref = paged_attention_append_plain(q, *plain, kn, vn, bt, ln, cl, ok,
+                                       window=window)
     torch.cuda.synchronize()
     check(torch.equal(got, want) and all(
         torch.equal(a, b) for a, b in zip(mine, pair)),
@@ -815,7 +908,7 @@ def fused_check(q, kp, vp, kn, vn, bt, ln, cl, ok, label, S=None):
           f"plain version")
     check(not ok.any() or not torch.equal(mine[0], kp),
           f"{label}: the fused launch wrote nothing")
-    err = (got.float() - ref.float()).abs().max().item()
+    err = live_err(got, ref, cl, label, share)
     tol = 2e-2 if torch.bfloat16 in (q.dtype, kp.dtype) else 1e-4
     check(math.isfinite(err) and err <= tol,
           f"{label}: max err {err} against the plain version (tol {tol})")
@@ -973,8 +1066,7 @@ def sharded_kernel(results, lens):
         # size: every head of one launch over the whole arena, bit for bit
         check(torch.equal(got, paged_attention_cuda(q, kp, vp, bt, ln, cl)),
               f"{q.dtype}: per-shard launches differ from the full launch")
-        torch.cuda.synchronize()
-        return (got.float() - want.float()).abs().max().item()
+        return live_err(got, want, cl, f"paged_attention_sharded {q.dtype}")
 
     def run_append(case, seed):
         """The fused append per shard against one fused launch over the
@@ -1105,9 +1197,7 @@ def mqa_kernel(results, lens):
                             got = paged_attention_cuda(q, k, v, bt, ln, cl,
                                                        _splits=S)
                             want = paged_attention_plain(q, k, v, bt, ln, cl)
-                            torch.cuda.synchronize()
-                            err = (got.float()
-                                   - want.float()).abs().max().item()
+                            err = live_err(got, want, cl, label)
                             check(math.isfinite(err) and err <= tol[kd],
                                   f"{label}: max err {err}")
                         fused_check(q, k, v, kn, vn, bt, ln, cl, ok, label,
@@ -1160,8 +1250,8 @@ def mqa_kernel(results, lens):
                   f"mqa {arch} kernel 3 C={C}: per-shard launches over the "
                   f"replicated arena differ from one launch over all query "
                   f"heads")
-            err = (torch.cat(outs, dim=2).float() - paged_attention_plain(
-                q, *full, bt, ln, cl).float()).abs().max().item()
+            err = live_err(torch.cat(outs, dim=2), paged_attention_plain(
+                q, *full, bt, ln, cl), cl, f"mqa {arch} kernel 3 C={C}")
             check(err <= tol[bf16], f"mqa {arch} kernel 3 C={C}: max err "
                   f"{err}")
             log(f"mqa {arch} kernel 3 C={C}: {TP} shard launches of "
@@ -1269,7 +1359,7 @@ def gqa_slab_kernel(lens):
                       for c, f in zip(copies, full)
                       for s, h in enumerate(heads)),
                   f"{label}: a shard's copy differs from its head of the arena")
-            err = (got.float() - plain.float()).abs().max().item()
+            err = live_err(got, plain, cl, label)
             check(err <= 2e-2, f"{label}: max err {err} against the plain "
                   f"version")
             log(f"{label}: against one launch over the whole arena bitwise; "
@@ -1341,7 +1431,7 @@ def straddle_slab_kernel(lens):
                   f"per shard")
             got = torch.cat([window_heads(o, w, 3) for o, w in
                              zip(outs, STRADDLE_WINDOWS)], dim=2)
-            err = (got.float() - plain.float()).abs().max().item()
+            err = live_err(got, plain, cl, label)
             check(err <= 2e-2, f"{label}: max err {err} against the plain "
                   f"version")
             check(all(torch.equal(c[s], f[:, :, a:b])

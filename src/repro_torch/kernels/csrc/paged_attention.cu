@@ -156,9 +156,33 @@
 //     >= lo lies in the partition, so point 6's writers are unchanged.
 //     With W = 0, p_lo = 0 and the lower mask is j >= 0: every expression
 //     is the one without a window, so such launches are bitwise the same.
+//  8. Only a row's live query slots are computed.  Slot qi = c * G + g is
+//     live when c < cl = chunk_lens[b], so a row's live slots are its
+//     first cl * G, contiguous.  A query group with none (q0 >= cl * G)
+//     reads no page id, no query and no K/V, and takes no ticket: its
+//     split 0 writes zeros to the group's slots and every block of it
+//     returns.  A partly live group stages, computes, stores, writes to
+//     the partials and merges only its first min(rows, cl * G - q0)
+//     slots, whole 16-row query tiles past them are skipped, and its
+//     split 0 writes zeros to the rest.  So the output's padded slots (c
+//     >= cl) are exactly zero, and a row with cl = 0 gives zeros in every
+//     slot.  What it saves: in trinity-mini's mixed [64, 32] step (G = 8:
+//     256 slots a KV head in 4 groups of 64) a decoding row has 8 live
+//     slots, so its groups 1-3 and 3 of group 0's 4 query tiles were
+//     padding, each block re-reading the row's K/V for outputs nobody
+//     reads; about half of the step's 16-row tiles.  Why a live slot's
+//     arithmetic is unchanged: the group size (rows, chosen at launch from
+//     C * G), the split rule, the stage size and every query row's order
+//     of products read neither cl nor the group's live count (point 3),
+//     so each live slot is bitwise what the launch computing every slot
+//     gave.  Group 0 holds slot 0, so it is live whenever the row appends
+//     (cl >= 1): point 6's writers are unchanged.  The plain version
+//     (kernels/paged_attention.py) still gives a padded slot the horizon
+//     len; no caller reads one.
 //
-// Launch: 128 threads; dynamic shared memory laid out by Layout below (the
-// host sizes it with the same struct).  Head dims 16, 32, 64, 128, 256.
+// Launch: kThreads = 256 threads; dynamic shared memory laid out by Layout
+// below (the host sizes it with the same struct).  Head dims 16, 32, 64,
+// 128, 256.
 // The append adds no shared memory: the stage ring carries the new rows.
 
 #include <cuda_bf16.h>
@@ -350,10 +374,23 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   const int S = n_vis == 0
                     ? 1
                     : min(max_splits, (n_vis + split_pages - 1) / split_pages);
-  if (s >= S) return;  // (block-uniform)
 
+  // the group's slots [q0, q0 + n_grp), of which the first nrow are live
+  // (point 8); split 0 writes zeros to the others
   const int q0 = qg * rows;
-  const int nrow = min(rows, NQ - q0);
+  const int n_grp = min(rows, NQ - q0);
+  const int nrow = max(min(n_grp, min(max(cl, 0), C) * G - q0), 0);
+  if (s == 0 && nrow < n_grp) {
+    constexpr int OCH = D * (int)sizeof(TQ) / 16;  // 16-byte chunks a slot
+    for (int i = threadIdx.x; i < (n_grp - nrow) * OCH; i += kThreads) {
+      const int qi = q0 + nrow + i / OCH, c = qi / G, g = qi - (qi / G) * G;
+      reinterpret_cast<uint4*>(
+          out + (((long long)b * C + c) * Hq + (long long)h * G + g) * D)
+          [i % OCH] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (nrow == 0 || s >= S) return;  // (block-uniform)
+
   const int NQT = (nrow + kTile - 1) / kTile;  // 16-row query tiles
   const int KS = KT / kTile;                   // 16-token slices per stage
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -452,7 +489,7 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
 
   int pid_cur = lookup(0);  // this thread's token row of stage 0
 
-  // stage the block's query rows (padding rows are zeros and see nothing):
+  // stage the block's live query rows (the rest are zeros and see nothing):
   // cp.async where q is stored in the staging dtype, with stage 0's group
   if constexpr (sizeof(TQ) == sizeof(QS)) {
     constexpr int QCPR = D * (int)sizeof(QS) / 16;  // chunks per query row
@@ -483,8 +520,8 @@ paged_attention_kernel(const TQ* __restrict__ q,         // [B, C, Hq, D]
   for (int r = tid; r < rows; r += kThreads) {
     int lim = 0;
     if (r < nrow) {
-      // query slot c sits at global position len - cl + c and sees
-      // positions below that + 1; padded slots (c >= cl) see pos < len
+      // query slot c (live: c < cl) sits at global position len - cl + c
+      // and sees positions below that + 1
       const int c = (q0 + r) / G;
       lim = min(len - cl + c + 1, len);
     }
@@ -955,6 +992,7 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 // the fused append (point 6), all three or none; null selects the kernel
 // without it.  Built for q_dtype == kv_dtype and for a float32 q over a
 // bf16 arena.  window: the sliding window W of point 7, 0 for none.
+// The output's query slots c >= chunk_lens[b] are zeros (point 8).
 // Returns cudaGetLastError() after the launch (0 = launched), or a CUDA
 // error code for a refused configuration.
 extern "C" int paged_attention_launch(const void* q, const void* k,

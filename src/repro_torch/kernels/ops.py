@@ -38,7 +38,9 @@ def paged_attention(q, kv, block_tables, lengths, *,
     On CPU the decode form is the reference's decode oracle (−1 entries read
     as page 0) and the chunked form its chunked oracle; on CUDA both go
     through the kernel, which follows the Pallas kernel (−1 pages masked) —
-    exactly the reference's ``impl="ref"`` / ``impl="pallas"`` split.
+    exactly the reference's ``impl="ref"`` / ``impl="pallas"`` split.  The
+    kernel also writes zeros to the query slots past ``chunk_lens``, which
+    the chunked oracle computes; no caller reads those slots.
 
     ``mesh`` (tensor-parallel serving, ``launch/mesh.py``): q is then a
     sequence of per-shard q slabs and kv of per-shard {'k','v'} arena slabs

@@ -15,6 +15,14 @@ zeros for rows of length 0; and, where a launch gives a sliding window W
 own, and pages wholly before the chunk's first window are not read (point
 7 of the kernel's header note).
 
+The kernel computes only each row's live query slots (point 8): slot c of
+row b is live when ``c < chunk_lens[b]``, and its output is bitwise what a
+launch computing every slot gives, while the padded slots ``c >=
+chunk_lens[b]`` come out exactly zero (a row with ``chunk_lens`` 0: zeros
+throughout) and cost no K/V read.  The plain version keeps the chunked
+oracle's padded slots, which attend with the horizon of the row's length;
+no caller reads a padded slot, so the two agree on every slot read.
+
 :func:`paged_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`paged_attention_plain` is the same
 function in plain PyTorch (the chunked oracle of ``kernels/ref.py``), which
@@ -211,8 +219,11 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
     ``window`` > 0: each query sees only the ``window`` key positions up to
     its own, and the launch reads no page wholly before the first of them
     that the chunk's first query sees (``lengths - chunk_lens + 1 -
-    window``); 0 is the launch without one, bit for bit.  ``_splits`` forces :func:`row_splits`' split count for the split sweep
-    and its tests only; the serving path never passes it.  ``_append`` is the
+    window``); 0 is the launch without one, bit for bit.  Query slots ``c
+    >= chunk_lens[b]`` of the output are exactly zero and are not computed
+    (the plain version gives them the horizon ``lengths[b]``; module
+    docstring).  ``_splits`` forces :func:`row_splits`' split count for the
+    split sweep and its tests only; the serving path never passes it.  ``_append`` is the
     fused append's (k_new, v_new, write_ok), checked by
     :func:`paged_attention_append_cuda`, its only caller."""
     tensors = (q, k_pages, v_pages, block_tables, lengths, chunk_lens)
@@ -290,8 +301,9 @@ def paged_attention_append_cuda(q, k_pages, v_pages, k_new, v_new,
     is −1 or past the arena, or the page slot is past the table's width —
     and returns the attention output over the updated arena, bitwise that
     of ``kv_append_cuda`` followed by :func:`paged_attention_cuda` when no
-    row reads a slot another row writes (the kernel's header note).  Rows
-    need ``chunk_lens <= lengths``.  Every other input as
+    row reads a slot another row writes (the kernel's header note): its
+    query slots ``c >= chunk_lens[b]`` exactly zero as there.  Rows need
+    ``chunk_lens <= lengths``.  Every other input as
     :func:`paged_attention_cuda` takes it; q and the arena share a dtype,
     or q is float32 over a bf16 arena.  Counts one launch here and one in
     :func:`paged_attention_cuda`, which it launches through."""

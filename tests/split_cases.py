@@ -2,11 +2,77 @@
 
 One generator for every place that holds the split design to the plain
 version: the CPU emulation in ``tests/test_torch_paged_attention.py``, the
-``cuda``-marked tests in ``tests/test_torch_cuda.py`` and the kernel phase
-of ``chip_smoke.py``.  Imports numpy only.
+``cuda``-marked tests in ``tests/test_torch_cuda.py`` and
+``tests/test_torch_cuda_afmoe.py`` and the kernel phase of
+``chip_smoke.py``; and the check all of them hold the kernel's output to
+(:func:`live_error`, which :func:`assert_live_close` asserts on): the
+plain version's on live query slots, exact zeros on the padded ones.
+Imports numpy only.
 """
 
 import numpy as np
+
+
+def _host(x, dtype):
+    """A numpy array of ``x``: an array, or a torch tensor on any device."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+        x = (x.float() if x.is_floating_point() else x).numpy()
+    return np.asarray(x, dtype)
+
+
+#: The limit of :func:`live_share` on a bf16 kernel-1 output whose plain
+#: version's inputs are unit normal.  Rounding P and the output to bf16
+#: leaves about one ulp at a row's largest values: at most 2^-7 of a value
+#: some 4-5.5 times the row's RMS, so 3-4% of it.  2e-2 absolute is about
+#: that RMS itself (sqrt(e / keys): 0.02 at 7k keys), so it lets a dropped
+#: page or a window edge a page off through; this does not.
+LIVE_RMS_SHARE = 0.1
+
+
+def live_slots(chunk_lens, C):
+    """[B, C] bool: query slot c of row b is live when c < chunk_lens[b]."""
+    return np.arange(C)[None, :] < _host(chunk_lens, np.int64)[:, None]
+
+
+def live_error(got, want, chunk_lens, rtol=0.0):
+    """Kernel 1's output ``got`` [B, C, H, D] against ``want`` (the plain
+    version's): (the largest of |got - want| - ``rtol`` · |want| over the
+    live query slots, NaN where either is NaN there; the number of padded
+    slots' elements that are not exactly zero; the root mean square of
+    ``want`` over the live slots, the scale of what is compared)."""
+    got, want = _host(got, np.float32), _host(want, np.float32)
+    live = live_slots(chunk_lens, got.shape[1])
+    g, w = got[live], want[live]
+    d = np.abs(g - w) - rtol * np.abs(w)
+    rms = float(np.sqrt(np.mean(np.square(w)))) if w.size else 0.0
+    return float(d.max(initial=0.0)), int(np.count_nonzero(got[~live])), rms
+
+
+def live_share(got, want, chunk_lens):
+    """The largest, over the rows b of ``got`` [B, C, H, D], of row b's
+    :func:`live_error` as a share of its live RMS: the limit follows each
+    row's scale (a row over N unit-normal keys has an RMS of about
+    sqrt(e / N)).  NaN where a live slot is NaN; a row with no live slot
+    counts 0."""
+    got, want = _host(got, np.float32), _host(want, np.float32)
+    cl = _host(chunk_lens, np.int64)
+    shares = [0.0]
+    for b in range(got.shape[0]):
+        err, _, rms = live_error(got[b:b + 1], want[b:b + 1], cl[b:b + 1])
+        shares.append(err / rms if rms else (0.0 if err == 0 else np.inf))
+    return float(np.max(shares))
+
+
+def assert_live_close(got, want, chunk_lens, atol, rtol=0.0):
+    """Assert kernel 1's contract on ``got`` [B, C, H, D]: every live query
+    slot within ``atol`` (+ ``rtol`` · |want|) of ``want``, NaN nowhere
+    equal to anything, and every padded slot (c >= chunk_lens[b]) exactly
+    zero.  Each element is checked once, by one of the two."""
+    err, stray, rms = live_error(got, want, chunk_lens, rtol)
+    assert stray == 0, f"{stray} elements of padded query slots are not zero"
+    assert err <= atol, (f"live slots differ by up to {err} beyond rtol "
+                         f"{rtol} (atol {atol}; live RMS {rms:.3g})")
 
 
 def split_edge_case(S, page, C, Hq, Hkv, D, seed, B=8):

@@ -6,6 +6,9 @@ has only PyTorch: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerance: float32 1e-4 abs (summation order); bfloat16 2e-2 abs (outputs
 may round to a neighbouring bf16 value); the KV append is bit-exact, and
 the fused append + attention launch is bitwise the two-launch pair.
+Kernel 1 computes only each row's live query slots (its header note,
+point 8): held to the plain version there, its padded slots (c >=
+chunk_lens) to exact zeros (``split_cases.assert_live_close``).
 """
 
 import contextlib
@@ -15,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.kv_append import kv_append_plain
-from split_cases import append_edge_case, split_edge_case
+from split_cases import (append_edge_case, assert_live_close,
+                         split_edge_case)
 
 torch.set_num_threads(1)
 
@@ -63,7 +67,7 @@ def test_cuda_paged_attention_matches_plain(cuda, C, ppcb, dtype):
     got = paged_attention_cuda(*args, pages_per_compute_block=ppcb)
     want = paged_attention_plain(*args)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert_live_close(got, want, args[5], atol=tol)
 
 
 @pytest.mark.cuda
@@ -83,7 +87,7 @@ def test_cuda_paged_attention_split_edges(cuda, S, C, Hq, Hkv, dtype):
     got = paged_attention_cuda(*args, _splits=S)
     want = paged_attention_plain(*args)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert_live_close(got, want, args[5], atol=tol)
     assert bool((got[4] == 0).all())  # the row of length 0
 
 
@@ -158,7 +162,7 @@ def test_cuda_fused_append_is_the_two_launch_pair(cuda, S, C, Hq, Hkv, qd,
     assert all(torch.equal(a, b) for a, b in zip(mine, plain))
     assert not torch.equal(mine[0], k)
     tol = 2e-2 if "bfloat16" in (qd, kd) else 1e-4
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+    assert_live_close(got, ref, cl, atol=tol)
 
 
 @pytest.mark.cuda
@@ -244,8 +248,7 @@ def test_cuda_sharded_attention_matches_plain(cuda, C, ppcb, Hq, Hkv, dtype):
     assert paged_attention_sharded.launches - before == 2
     want = paged_attention_plain(q, k, v, bt, ln, cl)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    torch.testing.assert_close(torch.cat(outs, dim=2).float(), want.float(),
-                               atol=tol, rtol=0)
+    assert_live_close(torch.cat(outs, dim=2), want, cl, atol=tol)
 
 
 @pytest.mark.cuda
@@ -264,8 +267,8 @@ def test_cuda_kernels_launch_on_their_tensors_device(cuda):
     with torch.cuda.device(0):
         got = paged_attention_cuda(*args)
         torch.cuda.synchronize(dev)
-        torch.testing.assert_close(got, paged_attention_plain(*args),
-                                   atol=1e-4, rtol=0)
+        assert_live_close(got, paged_attention_plain(*args), args[5],
+                          atol=1e-4)
         kn = torch.randn((3, 4, 2, 64), device=dev)
         pages = [args[1].clone(), args[2].clone()]
         ref = [p.clone() for p in pages]
@@ -385,8 +388,7 @@ def _mqa_case(cuda, S, C, Hq, D, qd, kd, seed):
     if qd == kd:
         got = paged_attention_cuda(q, k, v, bt, ln, cl, _splits=S)
         want = paged_attention_plain(q, k, v, bt, ln, cl)
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=0)
+        assert_live_close(got, want, cl, atol=tol)
     pair, mine, plain = ([k.clone(), v.clone()] for _ in range(3))
     kv_append_cuda(*pair, kn, vn, bt, ln - cl, cl, ok)
     want = paged_attention_cuda(q, *pair, bt, ln, cl, _splits=S)
@@ -396,7 +398,7 @@ def _mqa_case(cuda, S, C, Hq, D, qd, kd, seed):
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(mine, pair))
     assert all(torch.equal(a, b) for a, b in zip(mine, plain))
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+    assert_live_close(got, ref, cl, atol=tol)
 
 
 @pytest.mark.cuda
@@ -446,7 +448,7 @@ def _replicated_case(cuda, C, Hq, D, dtype, seed):
         assert torch.equal(kc, full[0]) and torch.equal(vc, full[1])
     plain = paged_attention_plain(q, *full, bt, ln, cl)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    torch.testing.assert_close(want.float(), plain.float(), atol=tol, rtol=0)
+    assert_live_close(want, plain, cl, atol=tol)
 
 
 @pytest.mark.cuda
@@ -615,8 +617,7 @@ def test_cuda_sharded_attention_on_kv_head_slabs(cuda, C, fused):
         for s, h in enumerate(heads):
             assert torch.equal(c[s], f[:, :, h:h + 1])
     plain = paged_attention_plain(q, *full, bt, ln, cl)
-    torch.testing.assert_close(want.float(), plain.float(), atol=2e-2,
-                               rtol=0)
+    assert_live_close(want, plain, cl, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -667,8 +668,7 @@ def test_cuda_sharded_attention_on_straddling_slabs(cuda, C, fused):
         for s, (a, b) in enumerate(heads):
             assert torch.equal(c[s], f[:, :, a:b])
     plain = paged_attention_plain(q, *full, bt, ln, cl)
-    torch.testing.assert_close(want.float(), plain.float(), atol=2e-2,
-                               rtol=0)
+    assert_live_close(want, plain, cl, atol=2e-2)
 
 
 @pytest.mark.cuda
