@@ -10,8 +10,9 @@ from .overload import (DEFAULT_CLASSES, ClassQueues, DegradationLadder,
                        LadderConfig, RequestClass, VICTIM_POLICIES)
 from .paged_decode import fused_decode_step, kv_storage_init, paged_decode_step
 from .parallel import DataParallelEngine, ReplicaStalled, WatchdogConfig
+from .prefix_index import PrefixIndex
 from .runner import ModelRunner, StepResult
-from .scheduler import PrefixIndex, Request, Scheduler, required_pages_per_seq
+from .scheduler import Request, Scheduler, required_pages_per_seq
 from .stats import ClassStats, EngineStats, LatencyReservoir, aggregate_stats
 from .traffic import (TraceEvent, dump_trace, load_trace, replay_arrivals,
                       synthesize_trace)

@@ -14,8 +14,9 @@ reference replicates them over its mesh).
 Wiring and delegation over three layers with explicit contracts:
 
 - :class:`repro_torch.serving.scheduler.Scheduler` — continuous-batching
-  POLICY (admission, Sarathi budgets, AIMD backoff, victims, prefix index,
-  quiescence release).  Pure host logic; imports no tensor framework.
+  POLICY (admission, Sarathi budgets, AIMD backoff, victims, the prefix
+  index of ``prefix_index.py``, quiescence release).  Pure host logic; it
+  records its spans on the engine's tracer.
 - :class:`repro_torch.serving.kv_manager.KVCacheManager` — page/refcount/
   superblock MECHANICS and host mirrors; the only layer that talks to the
   allocator (:class:`repro_torch.core.pagepool.DevicePagePool`).
@@ -43,9 +44,8 @@ from repro_torch.sharding.rules import (kv_join, kv_split, moe_shard_mode,
                                         param_shards)
 from .kv_manager import KVCacheManager
 from .paged_decode import kv_storage_init
-from .prefix_index import OrderedPrefixIndex
 from .runner import ModelRunner
-from .scheduler import PrefixIndex, Request, Scheduler  # noqa: F401
+from .scheduler import Request, Scheduler
 from repro_torch.spans import new_tracer
 from .stats import EngineStats
 
@@ -62,97 +62,6 @@ class ServingStats(EngineStats):
 
     def record_eager_step_held(self) -> None:
         self.eager_steps_held += 1
-
-
-class TracedPrefixIndex(OrderedPrefixIndex):
-    """The prefix index that keeps its eviction order
-    (``prefix_index.py``), with a ``prefix.evict`` span around every sweep
-    (``repro_torch/spans.py``)."""
-
-    def __init__(self, page_size: int, cap: int, kvm, stats, tracer):
-        super().__init__(page_size, cap, kvm, stats)
-        self.tracer = tracer
-
-    def evict(self, need_pages: int | None = None,
-              freeable_only: bool = True) -> int:
-        with self.tracer.span("prefix.evict") as s:
-            before = self.stats.prefix_evictions
-            freed = super().evict(need_pages, freeable_only)
-            s.set(keys_scanned=self.examined,
-                  entries_evicted=self.stats.prefix_evictions - before)
-        return freed
-
-
-class TracedScheduler(Scheduler):
-    """The scheduler with a span around each call of the step protocol,
-    its prefix index traced, and a ``request.queued`` span from each
-    request's submission to its first admission
-    (``repro_torch/spans.py``).  ``Scheduler`` is a drift-checked copy of
-    the reference's, so the spans wrap it from outside."""
-
-    def __init__(self, kvm, stats, *, tracer, **kw):
-        super().__init__(kvm, stats, **kw)
-        self.tracer = tracer
-        self.index = TracedPrefixIndex(self.page_size, self.index.cap, kvm,
-                                       stats, tracer)
-        #: id(request) -> (request, submission time) until first admission
-        self._waiting: dict[int, tuple] = {}
-
-    def _queued(self, req: Request, t: float) -> None:
-        if req.state == "queued" and req.admitted_step is None:
-            self._waiting[id(req)] = (req, t)
-
-    def _admitted(self) -> None:
-        """Close the wait of the request admission last appended to the
-        running set, if this is its first admission."""
-        if self.running:
-            got = self._waiting.pop(id(self.running[-1]), None)
-            if got is not None:
-                self.tracer.add("request.queued", got[1], time.perf_counter(),
-                                rid=got[0].rid)
-
-    def submit(self, prompt, max_new_tokens, deadline=None,
-               cls="interactive") -> Request:
-        t = time.perf_counter()
-        req = super().submit(prompt, max_new_tokens, deadline=deadline,
-                             cls=cls)
-        self._queued(req, t)
-        return req
-
-    def requeue(self, req: Request) -> bool:
-        ok = super().requeue(req)
-        if id(req) not in self._waiting:  # a refused request's wait begins
-            self._queued(req, time.perf_counter())
-        return ok
-
-    def _shed_if_hopeless(self, req: Request) -> bool:
-        # called at the head of each admission: the one before it is done
-        self._admitted()
-        shed = super()._shed_if_hopeless(req)
-        if shed:
-            self._waiting.pop(id(req), None)
-        return shed
-
-    def admit(self) -> None:
-        with self.tracer.span("scheduler.admit"):
-            super().admit()
-            self._admitted()
-
-    def plan_chunk(self):
-        with self.tracer.span("scheduler.plan_chunk"):
-            return super().plan_chunk()
-
-    def plan_validate(self) -> bool:
-        with self.tracer.span("scheduler.plan_validate"):
-            return super().plan_validate()
-
-    def absorb(self, *a, **k):
-        with self.tracer.span("scheduler.absorb"):
-            return super().absorb(*a, **k)
-
-    def maintain(self) -> None:
-        with self.tracer.span("scheduler.maintain"):
-            super().maintain()
 
 
 class PagedServingEngine:
@@ -262,7 +171,7 @@ class PagedServingEngine:
             cfg, self.params, greedy=greedy, temperature=temperature,
             seed=seed, pages_per_compute_block=pages_per_compute_block,
             mesh=self.mesh, stats=self.stats, tracer=self.tracer)
-        self.scheduler = TracedScheduler(
+        self.scheduler = Scheduler(
             self.kv_manager, self.stats, tracer=self.tracer,
             num_pages=num_pages,
             page_size=page_size, max_batch=max_batch,
@@ -331,19 +240,8 @@ class PagedServingEngine:
         scheduler absorbs the results.  ``inject_preemption_of`` preempts
         that request after launch but before its results are consumed (the
         scheduler-overlap race; tests)."""
-        if not self.scheduler.running:
-            return
-        with self.tracer.span("engine.step") as span:
-            before = self.stats.tokens_committed
-            C, budget, drafts = self.scheduler.plan_chunk()
-            do_validate = self.scheduler.plan_validate()
-            res = self.runner.execute(self.kv_manager, chunk_size=C,
-                                      budget=budget, drafts=drafts,
-                                      do_validate=do_validate)
-            self.scheduler.absorb(res, C, budget, inject_preemption_of,
-                                  drafts=drafts)
-            span.set(tokens=self.stats.tokens_committed - before,
-                     **self._step_counters(res))
+        self.collect_step(self.launch_step(),
+                          inject_preemption_of=inject_preemption_of)
 
     def launch_step(self):
         """Enqueue one step WITHOUT collecting its host transfer; returns a
@@ -365,57 +263,36 @@ class PagedServingEngine:
             raise
         return pending, C, budget, drafts, (span, before)
 
-    def collect_step(self, handle) -> None:
+    def collect_step(self, handle, *,
+                     inject_preemption_of: Request | None = None) -> None:
         """Collect a :meth:`launch_step` handle: the single read back,
-        then the scheduler absorbs the results."""
+        then the scheduler absorbs the results (``inject_preemption_of``:
+        :meth:`step`)."""
         if handle is not None:
             pending, C, budget, drafts, (span, before) = handle
             try:
                 res = self.runner.collect(pending)
-                self.scheduler.absorb(res, C, budget, drafts=drafts)
+                self.scheduler.absorb(res, C, budget, inject_preemption_of,
+                                      drafts=drafts)
                 span.set(tokens=self.stats.tokens_committed - before,
                          **self._step_counters(res))
             finally:
                 self.tracer.end(span)
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
-        """Drive admit/step/maintain until the queue drains (or max_steps);
-        host work only at the allowed sync points."""
-        t0 = time.time()
-        for _ in range(max_steps):
-            self.scheduler.admit()
-            if not self.scheduler.running and not self.scheduler.queue:
-                break
-            if not self.scheduler.running:  # queue blocked on memory
-                if self._reclaim_policy.drain_pending():
-                    continue  # deferred frees applied (no live reader —
-                    # every interval guarantee holds); retry admission
-                raise MemoryError("pool exhausted with empty running set")
-            self.step()
-            self.scheduler.maintain()
-        if not self.scheduler.running:
-            # drain complete: apply any frees still deferred (interval
-            # limbo, chaos delays) so the mirrors and release floors see
-            # the true free state — zero readers, so this is always sound
-            self._reclaim_policy.flush()
-        if (self.scheduler.release_quiescence is not None
-                and not self.scheduler._adaptive_release):
-            # drain: park the now-idle superblocks.  Adaptive mode skips
-            # this eager shrink — its point is to keep capacity mapped
-            # across a regular burst cadence, releasing only when
-            # maintain()'s learned threshold says the drain is genuine.
-            self.shrink()
-        self.stats.record_wall(time.time() - t0)
+        """Drive admit/step/maintain until the queue drains (or max_steps):
+        :meth:`stream`, with nobody reading the tokens."""
+        for _ in self.stream(max_steps):
+            pass
         return self.stats
 
     def stream(self, max_steps: int = 10_000):
-        """Streaming drain: the same admit/step/maintain loop as
-        :meth:`run`, but a GENERATOR yielding ``(request, new_tokens)``
-        after every step that committed generated tokens — tokens reach the
-        caller as steps complete instead of at drain end.  Structurally
-        identical to :meth:`run` (one fused step, one read back
-        per step; yields are pure host reads of the mirrors), so the
-        sync-free invariant holds with a streaming consumer attached."""
+        """Streaming drain: the admit/step/maintain loop, as a GENERATOR
+        yielding ``(request, new_tokens)`` after every step that committed
+        generated tokens — tokens reach the caller as steps complete
+        instead of at drain end.  One fused step and one read back per
+        step; yields are pure host reads of the mirrors, so the sync-free
+        invariant holds with a streaming consumer attached."""
         t0 = time.time()
         emitted: dict[int, int] = {}  # rid -> tokens already yielded
         for _ in range(max_steps):
@@ -424,7 +301,8 @@ class PagedServingEngine:
                 break
             if not self.scheduler.running:  # queue blocked on memory
                 if self._reclaim_policy.drain_pending():
-                    continue
+                    continue  # deferred frees applied (no live reader —
+                    # every interval guarantee holds); retry admission
                 raise MemoryError("pool exhausted with empty running set")
             watch = list(self.scheduler.running)
             self.step()
@@ -438,9 +316,16 @@ class PagedServingEngine:
                     emitted[req.rid] = len(req.generated)
             self.scheduler.maintain()
         if not self.scheduler.running:
+            # drain complete: apply any frees still deferred (interval
+            # limbo, chaos delays) so the mirrors and release floors see
+            # the true free state — zero readers, so this is always sound
             self._reclaim_policy.flush()
         if (self.scheduler.release_quiescence is not None
                 and not self.scheduler._adaptive_release):
+            # drain: park the now-idle superblocks.  Adaptive mode skips
+            # this eager shrink — its point is to keep capacity mapped
+            # across a regular burst cadence, releasing only when
+            # maintain()'s learned threshold says the drain is genuine.
             self.shrink()
         self.stats.record_wall(time.time() - t0)
 

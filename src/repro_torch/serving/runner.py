@@ -15,7 +15,6 @@ mesh's lead device, so the one read stays one read.
 results, packed into one int32 tensor, still on the device; ``collect``
 reads them back in one transfer — the one read of a steady step: on a
 card a copy into pinned memory and a wait for the current stream.
-``execute`` is launch then collect.
 
 **Captured steps.**  The reference's runner owns one compiled executable
 per static key; on a card this one owns one captured
@@ -309,14 +308,6 @@ class ModelRunner:
         self._host_out.copy_(pending, non_blocking=True)
         torch.cuda.current_stream(pending.device).synchronize()
         return self._host_out.numpy().copy()
-
-    def execute(self, kvm: KVCacheManager, *, chunk_size: int = 1,
-                budget: int = 1, drafts: dict | None = None,
-                do_validate: bool = True) -> StepResult:
-        """One full step: launch, then collect its single transfer."""
-        return self.collect(self.launch(
-            kvm, chunk_size=chunk_size, budget=budget, drafts=drafts,
-            do_validate=do_validate))
 
     # -- graphs --------------------------------------------------------------
 

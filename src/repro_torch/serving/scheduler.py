@@ -1,26 +1,32 @@
-"""Scheduler: continuous-batching policy — pure host logic, no jax.
+"""Scheduler: continuous-batching policy — pure host logic.
 
 The top layer of the serving stack (ARCHITECTURE.md).  Everything here is a
 *decision*: admission order and its starvation guard, Sarathi-style token
 budgets and the AIMD chunk backoff, victim selection, prefix-index matching
-and donation/eviction policy, the quiescence release policy.  Every
-*mechanism* those decisions need — device grants, share/unshare batches,
-slot installs, refcount and clock mirrors, physical release — is a method
-call on the :class:`repro.serving.kv_manager.KVCacheManager`, and every
-value crossing that boundary is a plain host int/list/bool.
+and donation/eviction policy (``prefix_index.py``), the quiescence release
+policy.  Every *mechanism* those decisions need — device grants,
+share/unshare batches, slot installs, refcount and clock mirrors, physical
+release — is a method call on the
+:class:`repro_torch.serving.kv_manager.KVCacheManager`, and every value
+crossing that boundary is a plain host int/list/bool.
 
-The module deliberately imports no jax (enforced by
-``tests/test_layering.py``): scheduling policy must stay testable against a
-fake allocator and portable across backends — the ROADMAP's sharding /
-async / multi-backend directions all land below this line.  Data-parallel
-serving (``serving/parallel.py``) reuses the same scheduler per replica and
-routes between pools with the same pressure arithmetic this module exposes
-(:meth:`Scheduler.load`, :meth:`PrefixIndex.match`).
+The decisions are the reference's (``repro.serving.scheduler``), held to
+it token for token and counter for counter by the engine parity tests
+(``tests/test_torch_engine.py``).  The port's own additions are its spans
+(``repro_torch/spans.py``), on the engine's tracer: each call of the step
+protocol (``scheduler.admit``, ``scheduler.plan_chunk``,
+``scheduler.plan_validate``, ``scheduler.absorb``, ``scheduler.maintain``)
+and each request's ``request.queued``, from its submission (or a refused
+request's requeue) to its first entry into the running set.
+Data-parallel serving (``serving/parallel.py``) reuses the same scheduler
+per replica and routes between pools with the same pressure arithmetic
+this module exposes (:meth:`Scheduler.load`, :meth:`PrefixIndex.match`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 
@@ -32,7 +38,20 @@ from .draft import NGramDrafter
 from .kv_manager import KVCacheManager
 from .overload import (DEFAULT_CLASSES, ClassQueues, DegradationLadder,
                        LadderConfig, VICTIM_POLICIES)
+from .prefix_index import PrefixIndex
 from .stats import EngineStats
+
+
+def _spanned(name: str):
+    """Run the decorated method inside a span ``name`` of the scheduler's
+    tracer."""
+    def wrap(method):
+        @functools.wraps(method)
+        def spanned(self, *a, **k):
+            with self.tracer.span(name):
+                return method(self, *a, **k)
+        return spanned
+    return wrap
 
 
 def required_pages_per_seq(prompt_len: int, max_new: int,
@@ -141,189 +160,14 @@ class Request:
         return [int(p) for p in row if p >= 0]
 
 
-class PrefixIndex:
-    """The host-side prefix cache: aligned token tuples → resident pages.
-
-    Pure-dictionary *policy* (what matches, what a finish donates, what
-    pressure evicts first); every refcount consequence goes through the
-    manager (``index_take``/``index_drop``/``unshare_batch``), which owns
-    the mirrors.  The index maps an exact token tuple (length a multiple of
-    ``page_size``) to the device page holding that tuple's LAST page_size
-    tokens; a chain of k pages is recovered by looking up the k aligned
-    prefixes.  ``tail`` holds one partially-filled page per aligned prefix
-    for sub-page (COW) matching.  The index owns ONE reference per page.
-    """
-
-    def __init__(self, page_size: int, cap: int, kvm: KVCacheManager,
-                 stats: EngineStats):
-        self.page_size = page_size
-        self.cap = cap
-        self.kvm = kvm
-        self.stats = stats
-        self.index: dict[tuple, int] = {}
-        self.tail: dict[tuple, tuple[int, tuple]] = {}
-        self.pages: dict[int, tuple] = {}  # page -> ("page"|"tail", key)
-        # the manager's zero-transition predicates read a LIVE view of
-        # ``pages`` — one mutation updates policy and mirrors together
-        kvm.bind_index(self.pages)
-
-    def match(self, prompt: list[int]):
-        """Longest resident prefix of ``prompt``: ``(m, chain, tail_page)``.
-
-        ``chain`` holds page ids for the first ``m // page_size`` fully
-        matched pages; ``tail_page`` (−1 = none) extends the match by
-        ``m % page_size`` tokens into a partially matching page (granted
-        copy-on-write).  ``m`` caps at ``len(prompt) − 1`` — the last
-        prompt token is always recomputed, because its forward pass
-        produces the first generated token.  Host dictionary walk only."""
-        ps = self.page_size
-        chain: list[int] = []
-        k = 0
-        while (k + 1) * ps <= len(prompt):
-            page = self.index.get(tuple(prompt[: (k + 1) * ps]))
-            if page is None:
-                break
-            chain.append(page)
-            k += 1
-        extra, tail_page = 0, -1
-        tail = self.tail.get(tuple(prompt[: k * ps]))
-        if tail is not None:
-            tp, ttoks = tail
-            rest = prompt[k * ps:]
-            while (extra < len(ttoks) and extra < len(rest)
-                   and ttoks[extra] == rest[extra]):
-                extra += 1
-            tail_page = tp if extra > 0 else -1
-        m = k * ps + extra
-        if m >= len(prompt):  # never grant the full prompt (see docstring)
-            m = len(prompt) - 1
-            k2, extra = divmod(m, ps)
-            if k2 < k:
-                tail_page = chain[k2] if extra > 0 else -1
-                chain = chain[:k2]
-            elif extra == 0:
-                tail_page = -1
-        if m <= 0:
-            return 0, [], -1
-        return m, chain, (tail_page if m % ps else -1)
-
-    def donate(self, row: list[int], seq: list[int], committed: int,
-               shared_ids: set[int]) -> None:
-        """Finish-path policy: offer the row's committed pages to the index
-        (references TRANSFER — no device op, no version bump) and unshare
-        whatever the index does not take, in one batched drop."""
-        kvm, ps = self.kvm, self.page_size
-        k_full, t_extra = divmod(committed, ps)
-        to_unshare: list[int] = []
-        freed = 0
-        covered = k_full + (1 if t_extra else 0)
-        for j in range(covered):
-            page = row[j]
-            if page < 0:  # defensive: a committed position must be mapped
-                continue
-            if j < k_full:
-                key = tuple(seq[: (j + 1) * ps])
-                existing = self.index.get(key)
-                if existing == page:
-                    # already indexed (shared at admission): drop the slot's
-                    # extra reference, the index keeps its own
-                    to_unshare.append(page)
-                    freed += kvm.drop_ref_frees(page, page in shared_ids)
-                elif existing is None and page not in self.pages:
-                    self.index[key] = page
-                    self.pages[page] = ("page", key)
-                    if page in shared_ids:
-                        kvm.dec_sharer(page)  # sharer ref becomes the
-                        # index's ref — refcount unchanged, no device op
-                else:
-                    # same content already cached under a different page:
-                    # keep the cache's copy, drop ours
-                    to_unshare.append(page)
-                    freed += kvm.drop_ref_frees(page, page in shared_ids)
-            else:  # the partially filled tail page (always owned: any shared
-                # tail was COW-diverged by this request's first write)
-                key = tuple(seq[: k_full * ps])
-                ttoks = tuple(seq[k_full * ps: committed])
-                if key in self.tail or page in self.pages or not ttoks:
-                    to_unshare.append(page)
-                    freed += kvm.drop_ref_frees(page, page in shared_ids)
-                else:
-                    self.tail[key] = (page, ttoks)
-                    self.pages[page] = ("tail", key)
-                    if page in shared_ids:
-                        kvm.dec_sharer(page)
-        for j in range(covered, len(row)):  # uncommitted growth grants
-            if row[j] >= 0:
-                to_unshare.append(row[j])
-                freed += kvm.drop_ref_frees(row[j], row[j] in shared_ids)
-        kvm.unshare_batch(to_unshare, freed)
-        self.stats.record_cache_pages(len(self.pages))
-        self.enforce_cap()
-
-    def evict(self, need_pages: int | None = None,
-              freeable_only: bool = True) -> int:
-        """Evict entries leaf-first; returns pages actually FREED.
-
-        ``need_pages``: stop once that many pages freed (None = down to the
-        cap).  ``freeable_only``: skip pages still referenced by a running
-        slot (dropping the index's reference would free nothing).  One
-        linear sweep: tails first (always leaves), then index keys
-        deepest-first — a chain link becomes a leaf the moment its
-        extension is evicted earlier in the SAME sweep; a per-key child
-        count replaces the quadratic extension scan.  One batched unshare
-        at the end; the clock mirror ticks once iff any page hit zero."""
-        kvm, ps = self.kvm, self.page_size
-        children: dict[tuple, int] = {}
-        for k in self.index:
-            if len(k) > ps:
-                parent = k[: len(k) - ps]
-                children[parent] = children.get(parent, 0) + 1
-        candidates = (
-            [("tail", k) for k in sorted(self.tail, key=len, reverse=True)]
-            + [("page", k) for k in sorted(self.index, key=len, reverse=True)])
-        to_unshare: list[int] = []
-        freed = 0
-        for kind, key in candidates:
-            if need_pages is not None and freed >= need_pages:
-                break
-            if need_pages is None and len(self.pages) <= self.cap:
-                break
-            if kind == "page" and (children.get(key, 0) > 0
-                                   or key in self.tail):
-                continue  # a longer chain link or its tail must go first
-            page = (self.tail[key][0] if kind == "tail" else self.index[key])
-            if freeable_only and kvm.sharer_count(page) > 0:
-                continue
-            if kind == "tail":
-                self.tail.pop(key)
-            else:
-                self.index.pop(key)
-                if len(key) > ps:
-                    parent = key[: len(key) - ps]
-                    children[parent] = children.get(parent, 0) - 1
-            self.pages.pop(page, None)
-            to_unshare.append(page)
-            if kvm.sharer_count(page) == 0:
-                freed += 1
-            self.stats.record_eviction()
-        if to_unshare:
-            kvm.unshare_batch(to_unshare, freed)
-            self.stats.record_cache_pages(len(self.pages))
-        return freed
-
-    def enforce_cap(self) -> None:
-        """Shrink the index back under its page cap (pressure-free path)."""
-        if len(self.pages) > self.cap:
-            self.evict(need_pages=None, freeable_only=False)
-
-
 class Scheduler:
     """Continuous-batching policy over a :class:`KVCacheManager` (module
     docstring).  Owns the queue, the running set, the prefix index and all
-    the knobs; never holds a device array."""
+    the knobs; never holds a device array.  ``tracer`` records its spans
+    and its index's (``repro_torch/spans.py``)."""
 
     def __init__(self, kvm: KVCacheManager, stats: EngineStats, *,
-                 num_pages: int, page_size: int, max_batch: int,
+                 tracer, num_pages: int, page_size: int, max_batch: int,
                  prefix_cache: bool = False,
                  prefix_cache_pages: int | None = None,
                  prefill_chunk: int = 1, token_budget: int | None = None,
@@ -340,6 +184,7 @@ class Scheduler:
                  clock=None):
         self.kvm = kvm
         self.stats = stats
+        self.tracer = tracer
         # the scheduler's one clock: monotonic by default (deadlines and
         # speed samples must not jump with NTP/wall adjustments); injectable
         # for deterministic tests
@@ -350,7 +195,7 @@ class Scheduler:
         self.prefix_cache = prefix_cache
         cap = (max(1, num_pages // 2) if prefix_cache_pages is None
                else max(1, prefix_cache_pages))
-        self.index = PrefixIndex(page_size, cap, kvm, stats)
+        self.index = PrefixIndex(page_size, cap, kvm, stats, tracer)
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.token_budget = token_budget
         # AIMD backoff of the chunk budget under memory pressure: a starved
@@ -443,6 +288,9 @@ class Scheduler:
         self._idle_ticks = 0
         self._next_rid = itertools.count(1000)
         self._engine = engine  # facade back-reference for Request.pages
+        #: id(request) -> (request, submission time on the spans' clock)
+        #: until its first admission: its ``request.queued`` span
+        self._waiting: dict[int, tuple] = {}
 
     # -- submission ----------------------------------------------------------
 
@@ -469,6 +317,7 @@ class Scheduler:
         never grows without bound.  Callers either retry later or use the
         engine facade's blocking submit, which drives steps until space
         frees."""
+        t_submit = time.perf_counter()
         if self.speculative_k > 0 and not self.greedy:
             raise ValueError(
                 "speculative decoding requires greedy sampling: the accept "
@@ -518,6 +367,7 @@ class Scheduler:
             return req
         self._note_arrival(now)
         self.queue.append(req)
+        self._waiting[id(req)] = (req, t_submit)
         self.stats.record_class_submit(cls)
         return req
 
@@ -530,6 +380,8 @@ class Scheduler:
         req.state = "queued"
         self._note_arrival(self.clock())
         self.queue.append(req)
+        # a refused request's wait begins
+        self._waiting.setdefault(id(req), (req, time.perf_counter()))
         self.stats.record_class_submit(req.cls)
         return True
 
@@ -593,6 +445,7 @@ class Scheduler:
 
     # -- admission -----------------------------------------------------------
 
+    @_spanned("scheduler.admit")
     def admit(self) -> None:
         """Admission (an allowed sync point): match the prefix index, grant
         shared pages, reserve the first step's worst-case page demand
@@ -695,6 +548,10 @@ class Scheduler:
             req.pages_held = len(shared) + (1 if need_fresh else 0)
             self.kvm.slots[slot] = req
             self.running.append(req)
+            waited = self._waiting.pop(id(req), None)
+            if waited is not None:  # its first admission
+                self.tracer.add("request.queued", waited[1],
+                                time.perf_counter(), rid=req.rid)
             if need_fresh:
                 self.stats.record_grants(1)
             if m > 0:
@@ -717,6 +574,7 @@ class Scheduler:
             return False
         assert self.queue[0] is req
         self.queue.popleft()
+        self._waiting.pop(id(req), None)
         req.state = "shed"
         self.stats.record_shed(cls=req.cls)
         return True
@@ -840,6 +698,7 @@ class Scheduler:
             return 1
         return 0
 
+    @_spanned("scheduler.plan_validate")
     def plan_validate(self) -> bool:
         """Ask the reclamation policy whether THIS step's fused dispatch
         must run the OA validation pass (host mirrors only — the clock
@@ -853,6 +712,7 @@ class Scheduler:
             self._planned_clock)
         return self._step_validates
 
+    @_spanned("scheduler.plan_chunk")
     def plan_chunk(self) -> tuple[int, int, dict | None]:
         """Pick the executable (C), the traced budget and the draft plan for
         this step from host mirrors only.  C=1 is classic decode;
@@ -920,6 +780,7 @@ class Scheduler:
             cap = min(cap, self._ladder_chunk_cap)
         return cap
 
+    @_spanned("scheduler.absorb")
     def absorb(self, res, C: int, budget: int,
                inject_preemption_of: Request | None = None,
                drafts: dict | None = None) -> None:
@@ -1103,6 +964,7 @@ class Scheduler:
                 victim = self.queue.shed_lowest()
                 if victim is None:
                     break
+                self._waiting.pop(id(victim), None)
                 victim.state = "shed"
                 self.stats.record_shed(cls=victim.cls, by_ladder=True)
 
@@ -1158,6 +1020,7 @@ class Scheduler:
         return max(self._adaptive_floor,
                    int(self._gap_ewma * 1.5 + 0.999))
 
+    @_spanned("scheduler.maintain")
     def maintain(self) -> None:
         """Quiescence-driven release tick: after ``_release_threshold()``
         pressure-free ticks, release capacity no running request can demand

@@ -33,10 +33,11 @@ The spans, where they are opened, and the counters they carry:
   sliding window W; 0 without one), from the host's lengths;
 - ``scheduler.admit``, ``scheduler.plan_chunk``,
   ``scheduler.plan_validate``, ``scheduler.absorb``,
-  ``scheduler.maintain`` (the engine's scheduler);
-- ``prefix.evict`` (every sweep of the prefix index): ``keys_scanned``
-  (the candidates the sweep examined: popped from the index's queue of
-  leaves, stale and pinned ones included), ``entries_evicted``;
+  ``scheduler.maintain`` (``serving/scheduler.py``);
+- ``prefix.evict`` (every sweep of the prefix index,
+  ``serving/prefix_index.py``): ``keys_scanned`` (the candidates the
+  sweep examined: popped from the index's heap of leaves, pinned ones and
+  keys no longer leaves included), ``entries_evicted``;
 - ``runner.launch`` (``ModelRunner.launch``): ``positions``, the rows
   times the chunk the launched step computes;
 - ``runner.read`` (``ModelRunner.collect``): the step's one read, the

@@ -1,21 +1,22 @@
-"""The prefix index that keeps its eviction order
-(``repro_torch/serving/prefix_index.py``) against the reference sweep it
-replaces, ``repro_torch.serving.scheduler.PrefixIndex.evict``: seeded
-random donations, cap and pressure sweeps and pinned pages driven into
-both, every call's evicted pages, ``freed``, contents and counters held
-equal; the work a sweep does, by its counter; and the engine serving the
-same tokens with either index."""
+"""The port's prefix index (``repro_torch/serving/prefix_index.py``),
+which keeps its eviction order as entries change, against the
+reference's, ``repro.serving.scheduler.PrefixIndex``, which re-derives it
+on every sweep, both driven through the port's manager: seeded random
+donations, cap and pressure sweeps and pinned pages driven into both,
+every call's evicted pages, ``freed``, contents and counters held equal;
+the work a sweep does, by its counter; the engine's one index; and the
+engine serving the same tokens with either index."""
 
 import numpy as np
 import pytest
 import torch
 
+from repro.serving.scheduler import PrefixIndex as ReferenceIndex
+from repro_torch import spans
 from repro_torch.configs import get_config, reduced
 from repro_torch.models.transformer import init_decoder_lm
-from repro_torch.serving import PagedServingEngine
+from repro_torch.serving import PagedServingEngine, PrefixIndex
 from repro_torch.serving.kv_manager import KVCacheManager
-from repro_torch.serving.prefix_index import OrderedPrefixIndex
-from repro_torch.serving.scheduler import PrefixIndex
 from repro_torch.serving.stats import EngineStats
 
 torch.set_num_threads(1)
@@ -42,14 +43,16 @@ class _Manager(KVCacheManager):
 
 
 class _Pair:
-    """A reference index and the ordered one, driven alike."""
+    """The reference's index and the port's, driven alike."""
 
     def __init__(self, page_size: int, cap: int):
         self.sides = []
-        for cls in (PrefixIndex, OrderedPrefixIndex):
+        for new in (False, True):
             stats = EngineStats()
             kvm = _Manager(stats)
-            self.sides.append((cls(page_size, cap, kvm, stats), kvm, stats))
+            idx = (PrefixIndex(page_size, cap, kvm, stats, spans.Tracer())
+                   if new else ReferenceIndex(page_size, cap, kvm, stats))
+            self.sides.append((idx, kvm, stats))
         self.ref, self.new = (s[0] for s in self.sides)
 
     def both(self, fn):
@@ -160,26 +163,27 @@ def test_the_random_runs_reach_tails_and_the_empty_key():
 
 
 def test_a_stale_entry_never_wins_after_a_key_comes_back():
-    """A key that leaves the index behind the queue's back and is donated
-    again ranks as a dictionary re-insertion: after its equals of the same
-    length, though its first entry is still queued ahead of them."""
+    """A key that is evicted and donated again ranks as a dictionary
+    re-insertion: after its equals of the same length, though it first
+    came before them.  Its first entry left the heap with it."""
     pair = _Pair(page_size=1, cap=100)
     pages = iter(range(1000))
     for seq in ([1, 2], [3, 4], [5, 6]):
         _finish(pair, seq, 2, pages, False, 0)
     p12 = pair.new.index[(1, 2)]
-
-    def drop(idx, kvm):
-        del idx.index[(1, 2)]
-        del idx.pages[p12]
-    pair.both(drop)
+    pinned = [pair.new.index[k] for k in ((3, 4), (5, 6))]
+    for p in pinned:
+        pair.both(lambda idx, kvm, p=p: kvm.inc_sharer(p))
+    # (3, 4) and (5, 6) are pinned: (1, 2) goes alone
+    assert pair.both(lambda idx, kvm: idx.evict(1, True)) == 1
+    assert (1, 2) not in pair.new.index and pair.new.examined == 1
+    pair.both(lambda idx, kvm: kvm.dec_sharer(pinned[1]))
     _finish(pair, [1, 2], 2, pages, False, 0)  # back, on a new page
     assert pair.new.index[(1, 2)] != p12
-    pair.both(lambda idx, kvm: kvm.inc_sharer(idx.index[(3, 4)]))
     # (3, 4) is pinned: (5, 6) goes, then (1, 2)
     assert pair.both(lambda idx, kvm: idx.evict(2, True)) == 2
     assert list(pair.new.index) == [(1,), (3,), (3, 4), (5,)]
-    assert pair.new.examined == 4  # the stale entry, (3, 4), (5, 6), (1, 2)
+    assert pair.new.examined == 3  # (3, 4), (5, 6), (1, 2)
 
 
 def _big_pair(chains=600, depth=9, ps=4):
@@ -214,29 +218,19 @@ def test_a_sweep_examines_what_it_evicts(pinned):
     assert evicted == 25 and pair.new.examined <= evicted + 2
 
 
-def test_the_dictionaries_refuse_changes_the_queue_would_miss():
-    pair = _Pair(page_size=2, cap=8)
-    _finish(pair, [1, 2, 3], 3, iter(range(10)), False, 0)
-    for d in (pair.new.index, pair.new.tail):
-        for change in (d.clear, d.popitem, lambda: d.update({(9, 9): 0}),
-                       lambda: d.setdefault((9, 9), 0)):
-            with pytest.raises(TypeError):
-                change()
-    pair.check()
-
-
 def test_an_overwrite_keeps_the_keys_place():
-    """Assigning to a present key, as a dictionary does, keeps its place
-    in the order and its parent's count."""
+    """A finish that offers keys already present — on the index's own
+    pages, shared at admission, or on copies of them — leaves each key
+    its place in the order and its parent's count."""
     pair = _Pair(page_size=1, cap=100)
     pages = iter(range(100))
     for seq in ([1, 2], [3, 4]):
         _finish(pair, seq, 2, pages, False, 0)
-
-    def overwrite(idx, kvm):
-        idx.index[(1, 2)] = idx.index[(1, 2)]
-    pair.both(overwrite)
+    _finish(pair, [1, 2], 2, pages, True, 0)  # the index's own pages
+    _finish(pair, [1, 2], 2, pages, False, 0)  # copies: dropped
+    assert list(pair.new.index) == [(1,), (1, 2), (3,), (3, 4)]
     assert pair.both(lambda idx, kvm: idx.evict(4, True)) == 4
+    assert pair.new.examined == 4 and not pair.new.index
 
 
 # -- the engine --------------------------------------------------------------
@@ -248,8 +242,29 @@ def model():
                                 device="cpu")
 
 
+def test_the_engine_builds_one_index_and_binds_it_once(model, monkeypatch):
+    """The engine's scheduler builds the port's index once: it is exactly
+    a :class:`repro_torch.serving.PrefixIndex`, and the manager is bound
+    once, to its pages."""
+    cfg, params = model
+    bound = []
+    bind = KVCacheManager.bind_index
+
+    def counted(self, pages):
+        bound.append(pages)
+        bind(self, pages)
+    monkeypatch.setattr(KVCacheManager, "bind_index", counted)
+    eng = PagedServingEngine(cfg, params, device="cpu", num_pages=14,
+                             page_size=4, max_batch=3, prefix_cache=True)
+    idx = eng.scheduler.index
+    assert type(idx) is PrefixIndex
+    assert len(bound) == 1 and bound[0] is idx.pages
+    assert eng.kv_manager.index_pages == idx.pages.keys()
+    assert idx.tracer is eng.tracer is eng.scheduler.tracer
+
+
 def test_the_engine_serves_alike_with_the_reference_index(model):
-    """Every engine holds the ordered index; swapping the reference's in
+    """Every engine holds the port's index; swapping the reference's in
     changes no token, counter or cache entry (cap and pressure sweeps)."""
     cfg, params = model
     rng = np.random.default_rng(4)
@@ -261,11 +276,11 @@ def test_the_engine_serves_alike_with_the_reference_index(model):
         eng = PagedServingEngine(cfg, params, device="cpu", num_pages=14,
                                  page_size=4, max_batch=3, prefill_chunk=4,
                                  prefix_cache=True, prefix_cache_pages=5)
-        assert isinstance(eng.scheduler.index, OrderedPrefixIndex)
+        assert type(eng.scheduler.index) is PrefixIndex
         if reference:
             old = eng.scheduler.index
-            eng.scheduler.index = PrefixIndex(old.page_size, old.cap,
-                                              eng.kv_manager, eng.stats)
+            eng.scheduler.index = ReferenceIndex(old.page_size, old.cap,
+                                                 eng.kv_manager, eng.stats)
         reqs = [eng.submit(p, 6) for p in prompts]
         eng.run()
         idx = eng.scheduler.index

@@ -18,7 +18,6 @@ from repro_torch.models.transformer import init_decoder_lm
 from repro_torch.serving import (DataParallelEngine, PagedServingEngine,
                                  kv_manager, stats)
 from repro_torch.serving import prefix_index
-from repro_torch.serving.prefix_index import OrderedPrefixIndex
 
 torch.set_num_threads(1)
 
@@ -263,7 +262,8 @@ def test_an_evict_span_per_sweep_with_its_counters(model, monkeypatch):
     queue of leaves, at least one for each entry it evicts."""
     cfg, params = model
     sweeps, popped = [], [0]
-    evict, heappop = OrderedPrefixIndex.evict, prefix_index.heappop
+    evict = prefix_index.PrefixIndex.evict
+    heappop = prefix_index.heappop
 
     def counted(self, *a, **k):
         n = popped[0]
@@ -274,7 +274,7 @@ def test_an_evict_span_per_sweep_with_its_counters(model, monkeypatch):
     def pop(heap):
         popped[0] += 1
         return heappop(heap)
-    monkeypatch.setattr(OrderedPrefixIndex, "evict", counted)
+    monkeypatch.setattr(prefix_index.PrefixIndex, "evict", counted)
     monkeypatch.setattr(prefix_index, "heappop", pop)
     eng = PagedServingEngine(cfg, params, device="cpu", prefix_cache=True,
                              prefix_cache_pages=5, **KW)

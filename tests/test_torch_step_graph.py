@@ -11,9 +11,10 @@ static output and the state identity checks — so a plumbing fault shows
 as a token, counter or pool that differs from the JAX
 ``PagedServingEngine``'s on the workloads of
 ``tests/test_torch_engine.py::WORKLOADS`` (preemption churn in a tight
-pool, the prefix cache, chunked prefill, speculation, and both skipping
-reclamation policies).  Tolerance: exact, as in that file (the same
-weights, workloads and margin guard).
+pool under either victim policy, the prefix cache and its eviction,
+chunked prefill, speculation, both skipping reclamation policies,
+overload and the adaptive release).  Tolerance: exact, as in that file
+(the same weights, workloads and margin guard).
 
 Also: a pool the host replaced between steps (a preemption's free, a
 share, a release, the chaos wrapper, the engine's ``pool`` setter) is the
@@ -43,7 +44,7 @@ from repro_torch.core.pagepool import PagePool
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.serving import DataParallelEngine, PagedServingEngine
 from repro_torch.serving.runner import ModelRunner, uses_graphs
-from test_torch_engine import WORKLOADS, _int_stats, _phases
+from test_torch_engine import WORKLOADS, _engine_kw, _int_stats, _serve
 
 torch.set_num_threads(1)
 
@@ -62,18 +63,17 @@ def weights():
 @pytest.fixture(scope="module")
 def reference(weights):
     """The JAX engine's run of each workload, computed once for the module:
-    name -> (generated tokens, integer counters, final pool as numpy)."""
+    name -> (final states, generated tokens, integer counters, final pool
+    as numpy)."""
     jc, jp, _, _ = weights
     cache = {}
 
     def get(name):
         if name not in cache:
-            eng = JaxEngine(jc, jp, **WORKLOADS[name])
-            reqs = []
-            for prompts, max_new in _phases(name, jc.vocab):
-                reqs += [eng.submit(p, max_new) for p in prompts]
-                st = eng.run()
-            cache[name] = ([r.generated for r in reqs], _int_stats(st),
+            eng = JaxEngine(jc, jp, **_engine_kw(name))
+            reqs, st = _serve(eng, name, jc.vocab)
+            cache[name] = ([r.state for r in reqs],
+                           [r.generated for r in reqs], _int_stats(st),
                            [np.asarray(a) for a in eng.pool])
         return cache[name]
     return get
@@ -105,13 +105,10 @@ def test_graph_plumbing_matches_reference(weights, reference, plumbing,
                                           name):
     _, _, tc, tm = weights
     eng = plumbing(PagedServingEngine(tc, tm, device="cpu",
-                                      **WORKLOADS[name]))
-    reqs = []
-    for prompts, max_new in _phases(name, tc.vocab):
-        reqs += [eng.submit(p, max_new) for p in prompts]
-        st = eng.run()
-    tokens, stats, pool = reference(name)
-    assert all(r.state == "finished" for r in reqs)
+                                      **_engine_kw(name)))
+    reqs, st = _serve(eng, name, tc.vocab)
+    states, tokens, stats, pool = reference(name)
+    assert [r.state for r in reqs] == states
     assert [r.generated for r in reqs] == tokens
     assert _int_stats(st) == stats
     assert st.warnings_fired == int(eng.pool.clock)
